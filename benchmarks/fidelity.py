@@ -1,12 +1,11 @@
 """Committed fidelity + latency artifact for BASELINE.json's gate clauses.
 
-BASELINE names two numeric gates the test suite enforces but no artifact
-records (VERDICT r3 item 7): warp fidelity **PSNR >= 45 dB vs the
+BASELINE names two numeric gates: warp fidelity **PSNR >= 45 dB vs the
 reference warp** (the cv2.remap oracle — the reference's own warp is
 ``createMap`` + ``cv::remap INTER_LINEAR``,
 ``opencv/FrameSourceWarp.cpp:272-312``) and **p50 per-frame warp latency
 < 4 ms** on the production batched window. This script measures both on
-the real chip at a realistic correction and writes
+the device at a realistic correction and writes
 ``benchmarks/fidelity.json``:
 
     python benchmarks/fidelity.py [--batch 32] [--dispatches 24]
@@ -14,9 +13,9 @@ the real chip at a realistic correction and writes
 Latency protocol: the encode loop's unit of work is one
 ``warp_yuv_batch`` dispatch of ``--batch`` full-YUV frames; each timed
 dispatch is individually synced (so a dispatch's wall time includes the
-host->chip round trip — conservative vs the pipelined two-in-flight
+host->device round trip — conservative vs the pipelined two-in-flight
 encode loop), and per-frame latency = dispatch wall / batch. p50/p99
-are over the timed dispatches. PSNR compares the Pallas uint8 output
+are over the timed dispatches. PSNR compares the warp's uint8 output
 against cv2.remap on float32 input (float weights, no cv2 fixed-point
 quantization) rounded to the same uint8 grid, luma and chroma planes
 separately, at a 3-degree correction — the top of the per-frame range a
@@ -69,13 +68,13 @@ def run(batch: int, dispatches: int, correction_deg: float) -> dict:
         get_output_camera,
         get_preset_camera,
     )
-    from video_annotator_tpu.ops.warp_xla import compute_warp_map
-    from video_annotator_tpu.pipeline.render import FrameWarper, _scaled_camera
+    from video_annotator_tpu.ops.warp_xla import _scaled_camera, compute_warp_map
+    from video_annotator_tpu.pipeline.render import FrameWarper
 
     w, h = 3840, 2880
     in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (w, h))
     out_cam = get_output_camera(in_cam, crop_borders=True)
-    warper = FrameWarper(in_cam, out_cam, max_correction_deg=6.0)
+    warper = FrameWarper(in_cam, out_cam)
     oh, ow = warper.out_h, warper.out_w
 
     # A realistic correction: |rotvec| = correction_deg about a skew axis.
@@ -163,24 +162,23 @@ def run_families(correction_deg: float) -> dict:
     to every warp family a render can take (the reference's --filter
     set, ``src/render.ts:913-989``) and both 4-tap interp modes:
 
-    - ``rotation_bicubic``: the fused Pallas 4-tap kernel vs cv2.remap
+    - ``rotation_bicubic``: the 4-tap XLA warp vs cv2.remap
       INTER_CUBIC (Keys a=-0.75 — the same kernel) on float input,
       rounded to the same uint8 grid.
     - ``rotation_lanczos``: vs this framework's host-exact XLA
       ``lanczos_sample`` 4x4 formulation (cv2's INTER_LANCZOS4 is an
       8x8 window — a different resampler, not an oracle for v360's
-      ``interp=lanczos``); the row therefore measures the Pallas
-      kernel's polynomial sin-fit + schedule against exact math.
-    - ``similarity``: the shared fused kernel driven by a 3x3 pixel
-      matrix vs cv2.warpAffine INTER_LINEAR WARP_INVERSE_MAP; interior
-      crop (cv2 renormalizes border taps differently).
+      ``interp=lanczos``); the row checks the batched uint8 path against
+      the float formulation.
+    - ``similarity``: the XLA similarity warp vs cv2.warpAffine
+      INTER_LINEAR WARP_INVERSE_MAP; interior crop (cv2 renormalizes
+      border taps differently).
     - ``deshake``: the axis-wise translation warp vs cv2.warpAffine
       pure translation; interior crop excludes the blurred-edge fill
       (a deliberate divergence from BORDER_CONSTANT).
 
     Geometry: 4K for the rotation rows (the headline geometry); 1440p
-    for the 2D families, whose clip-extreme plan probing is a
-    multi-minute host-side pass at 4K (models/similarity.py).
+    for the 2D families.
     """
     import cv2
     import jax
@@ -194,7 +192,8 @@ def run_families(correction_deg: float) -> dict:
         get_preset_camera,
     )
     from video_annotator_tpu.models.deshake import warp_frame_deshake
-    from video_annotator_tpu.models.similarity import SimilarityWarper
+    from video_annotator_tpu.models.similarity import warp_frame_similarity
+    from video_annotator_tpu.ops.affine import similarity_matrix
     from video_annotator_tpu.ops.warp_xla import (
         compute_warp_map,
         lanczos_sample,
@@ -216,8 +215,7 @@ def run_families(correction_deg: float) -> dict:
     coords = None
     for interp, oracle_name in (("bicubic", "cv2.remap INTER_CUBIC"),
                                 ("lanczos", "xla lanczos_sample 4x4")):
-        warper = FrameWarper(in_cam, out_cam, max_correction_deg=6.0,
-                             interp=interp)
+        warper = FrameWarper(in_cam, out_cam, interp=interp)
         if coords is None:
             # The warper even-crops its canvas; the oracle map must use
             # the warper's exact output size.
@@ -244,8 +242,8 @@ def run_families(correction_deg: float) -> dict:
             # cv2 rows check against an implementation this repo does
             # not own; the lanczos row's oracle is the repo's own XLA
             # lanczos_sample (cv2 has no 4x4 lanczos), so it validates
-            # the Pallas polynomial/schedule against the in-repo
-            # formulation only — weigh it accordingly. (ADVICE r4.)
+            # the batched uint8 path against the in-repo
+            # formulation only — weigh it accordingly.
             "oracle_independent": interp != "lanczos",
         }
 
@@ -253,13 +251,14 @@ def run_families(correction_deg: float) -> dict:
     w2, h2 = 1920, 1440
     y2 = _textured(h2, w2, seed=5)
     params = np.asarray([20.0, -15.0, 0.01, 0.01], np.float32)  # dx dy ang ls
-    sim = SimilarityWarper(w2, h2, params[None, :])
-    mat = jnp.asarray(SimilarityWarper.matrices(params[None, :])[0])
+    mat = np.asarray(similarity_matrix(jnp.asarray(params)))
     u2 = _textured(h2 // 2, w2 // 2, seed=6)
-    sy, _, _ = jax.block_until_ready(
-        sim.warp_yuv(jnp.asarray(y2), jnp.asarray(u2), jnp.asarray(u2), mat))
+    sy, _, _ = jax.block_until_ready(warp_frame_similarity(
+        jnp.asarray(y2, jnp.float32), jnp.asarray(u2, jnp.float32),
+        jnp.asarray(u2, jnp.float32), jnp.asarray(params)))
+    sy = np.clip(np.round(np.asarray(sy)), 0, 255).astype(np.uint8)
     ref = cv2.warpAffine(
-        y2.astype(np.float32), np.asarray(mat)[:2], (sim.out_w, sim.out_h),
+        y2.astype(np.float32), mat[:2], (w2, h2),
         flags=cv2.INTER_LINEAR | cv2.WARP_INVERSE_MAP,
         borderMode=cv2.BORDER_CONSTANT,
     )
@@ -304,8 +303,7 @@ def main(argv=None) -> int:
     ap.add_argument("--no-families", dest="families", action="store_false",
                     help="skip the per-family PSNR rows (rotation "
                          "bicubic/lanczos, similarity, deshake)")
-    ap.add_argument("--out", default=os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "fidelity.json"))
+    ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     result = run(args.batch, args.dispatches, args.correction_deg)
     if args.families:

@@ -1,8 +1,8 @@
 """Host decode-feed benchmark: can the box feed N x 4K60 streams?
 
-BASELINE config #5 (8x 4K60 on a v5e-8) needs the HOST to decode
+BASELINE config #5 (8x 4K60 streams) needs the HOST to decode
 ~8 x 60 x 16.6 MB/s ~= 1.9 GB/s of NV12/I420 pixels (SURVEY.md §7 "hard
-parts") before the chips ever see a frame. The device-side warp cost is
+parts") before the device ever sees a frame. The device-side warp cost is
 measured in ``benchmarks/run.py::bench_8x4k60_multistream``; this
 benchmark measures the other half honestly on THIS host:
 
@@ -13,9 +13,9 @@ benchmark measures the other half honestly on THIS host:
   production feed path), measuring per-instance and aggregate
   frames/s and GB/s;
 - scale K over 1/2/4 to expose how decode throughput shares the
-  available cores (on this 1-vCPU dev box the aggregate stays flat —
-  the point of the table is the per-core number, which multiplies out
-  on a real v5e host; see docs/PIPELINE.md for the capacity math).
+  available cores (on a 1-core host the aggregate stays flat — the
+  point of the table is the per-core number, which multiplies out on a
+  many-core host; see docs/PIPELINE.md for the capacity math).
 
 Writes one JSON line per K to stdout and benchmarks/host_feed.json.
 

@@ -204,8 +204,8 @@ def main() -> None:
         ("rotation_smooth_scale025",
          dict(stabilise="smooth", analysis_scale=0.25, **rot),
          "unstabilized"),
-        # --analysis-mode paired: the batched TPU-first analyse (fresh
-        # corners per frame, all pairs in one launch per level) scored
+        # --analysis-mode paired: the batched analyse (fresh corners per
+        # frame, all pairs in one dispatch) scored
         # against the sequential tracker; the 4k_visual_full_pipeline
         # bench runs this mode at scale 0.5, so that exact combination
         # gets its own row.

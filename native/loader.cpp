@@ -1,12 +1,12 @@
 // Native video loader: threaded libav decode -> planar YUV 4:2:0 ring buffer.
 //
-// TPU-native counterpart of the reference's decode stack
+// Native counterpart of the reference's decode stack
 // (opencv/AvFrameSourceFileVaapi.cpp: demux + decode;
 // opencv/AvFrameSourceMapOpenCl.cpp + FrameSourceFfmpegOpenCl.cpp: surface
 // transfer into the compute runtime's memory). Here the "device interop" is
 // a lock-free-enough pinned ring of host frames that the Python feeder
 // overlaps with jax.device_put, and decoding runs on a dedicated thread
-// (plus libavcodec's internal frame threading) so the TPU never waits on
+// (plus libavcodec's internal frame threading) so the device never waits on
 // the demuxer.
 //
 // C ABI (consumed via ctypes — no pybind11 in this image):

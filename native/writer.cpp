@@ -1,13 +1,13 @@
 // Native video writer: threaded libav encode (libx264 QP 19 by default)
 // plus audio/GPMF stream passthrough from the source container.
 //
-// TPU-native counterpart of the reference's encode stack: the TS planner
+// Native counterpart of the reference's encode stack: the TS planner
 // encodes with `-c:v libx264 -qp 19` ("visually lossless",
 // src/render.ts:12-19) and stream-copies the audio and GoPro GPMF
 // metadata tracks (src/join.ts:56-82 maps them by handler name). Here the
 // Python pipeline hands planar YUV 4:2:0 frames to a ring buffer; a
 // dedicated thread encodes and muxes them, interleaving copied packets
-// from the source file by timestamp, so the TPU feed never waits on x264.
+// from the source file by timestamp, so the device feed never waits on x264.
 //
 // C ABI (consumed via ctypes — no pybind11 in this image):
 //   void* vaw_open(const char* dest, int w, int h, int fps_num, int fps_den,

@@ -4,8 +4,8 @@ The reference's Profiler prints numbers and loses them
 (``opencv/Profiler.cpp:25-34``); this framework commits every benchmark
 as a JSON artifact instead — and this test closes the remaining drift
 channel by parsing the figures README quotes and checking them against
-the artifacts they claim to quote (VERDICT r4 item 7, the
-``test_v1_surface`` pattern applied to numbers). Artifacts carry
+the artifacts they claim to quote (the ``test_v1_surface`` pattern
+applied to numbers). Artifacts carry
 ``{git_sha, captured_at_utc, backend}`` provenance stamps from
 ``benchmarks/provenance.py``; README text is matched by labeled
 regexes, so a re-captured artifact fails this test until README's
@@ -40,47 +40,6 @@ def _quoted(pattern, text=None):
                   re.IGNORECASE | re.DOTALL)
     assert m, f"README no longer quotes: /{pattern}/"
     return float(m.group(1))
-
-
-def test_readme_baseline_rows_match_results_json():
-    """Every fps figure in the BASELINE table is results.json verbatim."""
-    rows = {r["config"]: r for r in _artifact("results.json")
-            if "value" in r}
-    readme = _readme()
-    for config, label in [
-        ("720p_undistort_cpu", r"720p undistort[^|]*\|\s*([\d.]+)"),
-        ("1080p_sparse_flow", r"1080p sparse-flow[^|]*\|\s*([\d.]+)"),
-        ("1080p_full_pipeline", r"1080p full pipeline[^|]*\|\s*([\d.]+)"),
-        ("4k_gyro_fused", r"4K gyro-fused[^|]*\|\s*([\d.]+)"),
-        ("4k_visual_full_pipeline",
-         r"4K visual full pipeline[^|]*\|\s*\**([\d.]+)"),
-        ("8x4k60_multistream", r"8.4K60 multistream[^|]*\|\s*([\d.]+)"),
-    ]:
-        assert config in rows, f"results.json lost config {config}"
-        quoted = _quoted(label, readme)
-        actual = rows[config]["value"]
-        assert quoted == pytest.approx(actual, abs=0.05 + actual * 5e-3), (
-            f"README quotes {quoted} for {config}; "
-            f"results.json says {actual}")
-
-
-def test_readme_fidelity_figures_match_artifact():
-    fid = _artifact("fidelity.json")
-    fam = fid.get("families", {})
-    readme = _readme()
-    checks = [
-        (fid["psnr_luma_db"], r"bilinear\s+([\d.]+)\s*dB"),
-        (fam["rotation_bicubic"]["psnr_luma_db"], r"bicubic\s+([\d.]+)"),
-        (fam["rotation_lanczos"]["psnr_luma_db"], r"lanczos\s+([\d.]+)"),
-        (fam["similarity"]["psnr_luma_db"], r"similarity\s+([\d.]+)"),
-        (fam["deshake"]["psnr_luma_db"], r"deshake\s+([\d.]+)"),
-        (fid["p50_warp_ms_per_frame"], r"p50\s+([\d.]+)\s*ms/frame"),
-    ]
-    for actual, pattern in checks:
-        quoted = _quoted(pattern, readme)
-        assert quoted == pytest.approx(actual, abs=0.06), (
-            f"README quotes {quoted} for /{pattern}/; "
-            f"fidelity.json says {actual}")
 
 
 def test_readme_quality_rows_match_artifact():
@@ -121,22 +80,24 @@ def test_readme_quality_rows_match_artifact():
             f"quality.json says {actual}")
 
 
-def test_readme_roofline_figures_match_artifact():
-    roof = _artifact("roofline.json")
-    quoted = _quoted(r"reads\s+~?([\d.]+)\s*ns/tile steady state")
-    actual = roof["ns_per_tile_steady_state"]
-    assert quoted == pytest.approx(actual, abs=6.0), (
-        f"README quotes {quoted} ns/tile; roofline.json says {actual}")
-    floor = _quoted(r"([\d.]+)\s*ns\s+DMA-latency\s+floor")
-    assert floor == roof["dma_latency_ns_per_tile"]
+def test_committed_artifacts_are_host_measurements():
+    """Committed artifacts hold only what a CPU or host run can say:
+    quality scores (``quality.json``, CPU-stamped) and host decode/encode
+    rates (``host_feed.json``). Device timings come only from a run on
+    the accelerator and are never committed under a CPU stamp."""
+    names = sorted(n for n in os.listdir(os.path.join(ROOT, "benchmarks"))
+                   if n.endswith(".json"))
+    assert names == ["host_feed.json", "quality.json"], names
+    for name, backend in (("quality.json", "cpu"), ("host_feed.json", "host")):
+        for rec in _artifact(name):
+            assert rec["backend"] == backend, (name, rec.get("config"))
 
 
 def test_artifacts_carry_provenance_stamps():
     """Every re-captured artifact is stamped; old captures grandfathered
     only until their next refresh (the stamp fields are added by
     benchmarks/provenance.py at emit time)."""
-    for name in ("results.json", "fidelity.json", "roofline.json",
-                 "quality.json", "soak.json", "host_feed.json"):
+    for name in ("quality.json", "host_feed.json"):
         path = os.path.join(ROOT, "benchmarks", name)
         if not os.path.exists(path):
             continue
@@ -160,3 +121,17 @@ def test_provenance_stamp_fields():
     assert re.fullmatch(r"[0-9a-f]{7,}(-dirty)?|unknown", rec["git_sha"])
     assert re.fullmatch(
         r"\d{4}-\d{2}-\d{2}T\d{2}:\d{2}:\d{2}Z", rec["captured_at_utc"])
+
+
+def test_trace_warp_busy_time_merges_overlapping_kernels():
+    """The trace breakdown's busy time is the union of kernel intervals
+    (concurrent streams are not counted twice)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "trace_warp", os.path.join(ROOT, "benchmarks", "trace_warp.py"))
+    tw = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tw)
+    assert tw.busy_ns([]) == 0
+    assert tw.busy_ns([(0, 10), (5, 12), (20, 30), (21, 22)]) == 22
+    assert tw.busy_ns([(20, 30), (0, 10)]) == 20

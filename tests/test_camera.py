@@ -215,7 +215,7 @@ def test_panoramic_project_unproject_roundtrip(model):
 
 @pytest.mark.parametrize("model", _PANO_MODELS, ids=lambda m: m.value)
 def test_panoramic_numpy_twin_matches_jax(model):
-    """camera.unproject_np (the Pallas planner's host twin) must stay in
+    """camera.unproject_np (the warp reference's host twin) must stay in
     lock-step with Camera.unproject for every model."""
     from video_annotator_tpu.camera import camera_from_dfov, unproject_np
 

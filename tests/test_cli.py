@@ -75,17 +75,19 @@ def test_parser_has_reference_option_surface():
 
 def test_reference_hw_flags_accepted_as_inert_shims(capsys):
     """The reference's VAAPI/OpenCL plumbing flags (src/cli.ts:125-160)
-    parse without error (drop-in script compatibility) and change no
-    render option; --verbosity info implies the profiler report."""
+    and the v1 --max-correction parse without error (drop-in script
+    compatibility) and change no render option; --verbosity info implies
+    the profiler report."""
     p = build_parser()
     args = p.parse_args([
         "render", "in.mp4", "out.mp4",
         "--hw-accel", "vaapi", "--vaapi-vendor", "intel",
         "--open-cl-platform", "0", "--no-map-open-cl-from-vaapi",
         "--copy-vaapi-frames", "--verbosity", "info",
+        "--max-correction", "12",
     ])
     notes = capsys.readouterr().err
-    assert notes.count("reference compatibility") == 5
+    assert notes.count("reference compatibility") == 6
     o = _render_options(args)
     assert o.verbose  # --verbosity info implies the report
     base = _render_options(p.parse_args(["render", "in.mp4", "out.mp4"]))

@@ -381,11 +381,102 @@ def test_warp_frame_deshake_blur_edges_flag():
     assert np.asarray(y_fill[:, -8:]).max() > 0.0
 
 
-def test_similarity_warper_empty_corrections():
-    """An empty trim window constructs the warper before the loop finds
-    nothing to warp; it must plan for identity, not crash on an empty
-    reduction."""
-    from video_annotator_tpu.models.similarity import SimilarityWarper
+def _yuv_batch(b, h, w, seed=0):
+    """b smooth uint8 YUV 4:2:0 frames (luma ``_textured``, chroma too)."""
+    ys = [_textured(h, w, seed + i).round().astype(np.uint8) for i in range(b)]
+    us = [_textured(h // 2, w // 2, 50 + seed + i).round().astype(np.uint8)
+          for i in range(b)]
+    vs = [_textured(h // 2, w // 2, 90 + seed + i).round().astype(np.uint8)
+          for i in range(b)]
+    return ys, us, vs
 
-    w = SimilarityWarper(64, 48, np.zeros((0, 4), np.float32))
-    assert w.out_w == 64 and w.out_h == 48
+
+def _within_one(got, want, min_identical=0.99):
+    d = np.abs(np.asarray(got).astype(int) - np.asarray(want).astype(int))
+    assert d.max() <= 1, d.max()
+    assert (d == 0).mean() >= min_identical, (d == 0).mean()
+
+
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic", "lanczos"])
+def test_similarity_batch_warp_matches_frames_and_reference(interp):
+    """The encode's one-dispatch similarity warp == per-frame
+    warp_frame_similarity == the float64 NumPy reference."""
+    from video_annotator_tpu.models.similarity import warp_frame_similarity
+    from video_annotator_tpu.ops.warp_ref import similarity_yuv420_np
+    from video_annotator_tpu.ops.warp_xla import to_uint8
+    from video_annotator_tpu.pipeline.render import warp_2d_batch_fn
+
+    h, w, b = 72, 96, 3
+    ys, us, vs = _yuv_batch(b, h, w)
+    rng = np.random.default_rng(3)
+    params = (rng.normal(size=(b, 4)) * [4.0, 4.0, 0.02, 0.02]).astype(
+        np.float32)
+    outs = warp_2d_batch_fn("similarity", (h, w), (h, w), interp)(
+        ys, us, vs, jnp.asarray(params))
+    assert len(outs) == b
+    for i in range(b):
+        one = warp_frame_similarity(
+            *(jnp.asarray(p[i], jnp.float32) for p in (ys, us, vs)),
+            jnp.asarray(params[i]), interp=interp)
+        ref = similarity_yuv420_np(ys[i], us[i], vs[i], params[i],
+                                   interp=interp)
+        for got, frame, want in zip(outs[i], one, ref):
+            assert got.dtype == jnp.uint8 and got.shape == want.shape
+            np.testing.assert_array_equal(np.asarray(got),
+                                          np.asarray(to_uint8(frame)))
+            _within_one(got, want)
+
+
+@pytest.mark.parametrize("offset", [(3.75, -2.25), (0.0, 0.0),
+                                    (-17.5, 11.25), (200.0, -300.0)])
+def test_deshake_batch_warp_matches_reference_blur_fill(offset):
+    """The encode's one-dispatch deshake warp (blurred-edge fill) against
+    the float64 NumPy reference, whose blur is an independent padded
+    convolution — the fill region included. Offsets are binary fractions,
+    so float32 tap weights are exact and half-level ties round alike."""
+    from video_annotator_tpu.ops.warp_ref import deshake_yuv420_np
+    from video_annotator_tpu.pipeline.render import warp_2d_batch_fn
+
+    h, w = 72, 96
+    ys, us, vs = _yuv_batch(2, h, w, seed=4)
+    offs = np.asarray([offset, (-offset[0], offset[1])], np.float32)
+    outs = warp_2d_batch_fn("translation", (h, w), (h, w), "bilinear")(
+        ys, us, vs, jnp.asarray(offs))
+    for i in range(2):
+        ref = deshake_yuv420_np(ys[i], us[i], vs[i], offs[i])
+        for got, want in zip(outs[i], ref):
+            _within_one(got, want)
+        xs = np.arange(w) + offs[i][0]
+        yy = np.arange(h) + offs[i][1]
+        fill = ~(((xs >= 0) & (xs <= w - 1))[None, :]
+                 & ((yy >= 0) & (yy <= h - 1))[:, None])
+        if fill.any():
+            _within_one(np.asarray(outs[i][0])[fill], ref[0][fill])
+
+
+def test_2d_batch_warp_cuts_odd_inputs_to_even():
+    """Odd-sized decoded planes are cut to the even 4:2:0 size inside the
+    jitted warp, as the per-frame encode used to do on the host."""
+    from video_annotator_tpu.pipeline.render import warp_2d_batch_fn
+
+    ys, us, vs = _yuv_batch(2, 74, 98)
+    ys = [y[:73, :97] for y in ys]
+    (wy, wu, wv), _ = warp_2d_batch_fn(
+        "translation", (72, 96), (72, 96), "bilinear")(
+        ys, us, vs, jnp.zeros((2, 2)))
+    assert wy.shape == (72, 96) and wu.shape == wv.shape == (36, 48)
+    np.testing.assert_array_equal(np.asarray(wy), ys[0][:72, :96])
+    with pytest.raises(ValueError, match="kind"):
+        warp_2d_batch_fn("so3", (72, 96), (72, 96), "bilinear")
+
+
+@pytest.mark.parametrize("sigma", [2.0, 8.0])
+def test_gauss_blur_reference_matches_scipy(sigma):
+    """The reference blur (replicate edges, taps to 3 sigma) is scipy's."""
+    from scipy.ndimage import gaussian_filter
+
+    from video_annotator_tpu.ops.warp_ref import gauss_blur_np
+
+    img = _textured(40, 56, seed=7).astype(np.float64)
+    want = gaussian_filter(img, sigma, mode="nearest", truncate=3.0)
+    np.testing.assert_allclose(gauss_blur_np(img, sigma), want, atol=1e-9)

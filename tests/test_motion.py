@@ -198,8 +198,7 @@ def test_rotation_from_projected_corners_end_to_end():
 
 
 def test_detect_corners_large_min_distance_hierarchical_nms():
-    """min_distance > 32 uses the two-stage cell reduction (one (60,60)
-    reduce_window overflowed v5e's 16 MB scoped VMEM at 4K); winners must
+    """min_distance > 32 uses the two-stage cell reduction; winners must
     still honor the spacing."""
     import numpy as np
     import jax.numpy as jnp
@@ -340,3 +339,71 @@ def test_lk_recovers_large_coherent_pan():
     d = (np.asarray(new_pts) - np.asarray(pts))[ok]
     med = np.median(d, axis=0)
     np.testing.assert_allclose(med, shift, atol=0.5)
+
+
+def _textured(h, w, seed):
+    rng = np.random.default_rng(seed)
+    img = rng.normal(size=(h // 8 + 1, w // 16 + 1)).astype(np.float32)
+    img = cv2.resize(img, (w, h), interpolation=cv2.INTER_CUBIC)
+    return ((img - img.min()) / (img.max() - img.min()) * 255).astype(np.float32)
+
+
+def test_lk_edge_points_fail_cleanly():
+    """Points within the window margin of an edge at some pyramid level
+    come back status=False (cv2-style), never as plausible-looking
+    garbage flow; every status=True point tracks the true shift."""
+    img = _textured(480, 640, seed=2)
+    img2 = np.roll(img, (2, 3), axis=(0, 1)).astype(np.float32)
+    ys = np.asarray([9.0, 12.0, 30.0, 60.0, 240.0, 470.0, 474.0])
+    pts = jnp.asarray(np.stack([np.full_like(ys, 320.0), ys], axis=1),
+                      jnp.float32)
+    valid = jnp.ones((len(ys),), bool)
+    new_pts, status = pyramidal_lk(jnp.asarray(img), jnp.asarray(img2),
+                                   pts, valid)
+    status = np.asarray(status)
+    new_pts = np.asarray(new_pts)
+    assert status[4]
+    np.testing.assert_allclose(new_pts[4], [323.0, 242.0], atol=0.35)
+    for i in np.nonzero(status)[0]:
+        np.testing.assert_allclose(
+            new_pts[i] - np.asarray(pts)[i], [3.0, 2.0], atol=0.5)
+    assert not status[0] and not status[-1]
+
+
+def test_lk_tracks_last_strip():
+    """Points near the right/bottom edges whose windows still fit at
+    every pyramid level track normally (no whole-strip status kill)."""
+    img = _textured(720, 1280, seed=3)
+    img2 = np.roll(img, (2, 3), axis=(0, 1)).astype(np.float32)
+    xy = [(1080.0, 360.0), (1150.0, 300.0), (1200.0, 400.0),
+          (640.0, 600.0), (700.0, 640.0), (1100.0, 620.0),
+          (640.0, 360.0), (200.0, 200.0)]
+    pts = jnp.asarray(np.asarray(xy, np.float32))
+    valid = jnp.ones((len(xy),), bool)
+    new_pts, status = pyramidal_lk(jnp.asarray(img), jnp.asarray(img2),
+                                   pts, valid)
+    assert np.asarray(status).all(), status
+    np.testing.assert_allclose(
+        np.asarray(new_pts) - np.asarray(xy),
+        np.tile([3.0, 2.0], (len(xy), 1)), atol=0.5)
+
+
+def test_lk_vmapped_pairs_match_per_pair_calls():
+    """The paired analyse tracks all adjacent pairs with ``jax.vmap`` of
+    ``pyramidal_lk``; each pair equals its own unbatched call."""
+    frames = np.stack([np.roll(_textured(192, 256, seed=4), (i, 2 * i),
+                               axis=(0, 1)) for i in range(4)])
+    pts, valid = detect_corners(jnp.asarray(frames[0]), max_corners=32,
+                                min_distance=12)
+    pts_b = jnp.broadcast_to(pts, (3,) + pts.shape)
+    valid_b = jnp.broadcast_to(valid, (3,) + valid.shape)
+    got_p, got_s = jax.vmap(pyramidal_lk)(
+        jnp.asarray(frames[:-1]), jnp.asarray(frames[1:]), pts_b, valid_b)
+    for i in range(3):
+        want_p, want_s = pyramidal_lk(jnp.asarray(frames[i]),
+                                      jnp.asarray(frames[i + 1]), pts, valid)
+        np.testing.assert_array_equal(np.asarray(got_s[i]), np.asarray(want_s))
+        ok = np.asarray(want_s)
+        np.testing.assert_allclose(np.asarray(got_p[i])[ok],
+                                   np.asarray(want_p)[ok], atol=1e-3)
+    assert np.asarray(got_s).sum() > 20

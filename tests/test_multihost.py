@@ -1,7 +1,7 @@
 """Two-process ``jax.distributed`` integration test.
 
 The reference is single-node (its only concurrency is OS processes over
-independent clips, ``src/render.ts:21-22``); the TPU framework's scaling
+independent clips, ``src/render.ts:21-22``); the framework's scaling
 story beyond one host is ``jax.distributed`` + global meshes. No
 multi-host hardware exists in this environment, so this test forms a REAL
 two-process JAX cluster on CPU (4 virtual devices per process, one

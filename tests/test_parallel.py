@@ -6,6 +6,7 @@ is an execution detail, never a semantics change.
 """
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -80,7 +81,7 @@ def test_warp_streams_sharded_matches_single():
     )
 
     # Odd heights pad the row grid to the space axis and crop back
-    # (VERDICT r1 item 8) — (41, 64) exercises that; (40, 64) is the
+    # — (41, 64) exercises that; (40, 64) is the
     # aligned 2D (data, space) sharding; None is the auto-fit camera.
     for out_size in (None, (40, 64), (41, 64)):
         size = out_size or (out_cam.height, out_cam.width)
@@ -95,53 +96,34 @@ def test_warp_streams_sharded_matches_single():
             np.testing.assert_allclose(np.asarray(out[b]), want, atol=5e-2)
 
 
-def test_warp_frame_pallas_spatial_matches_unsharded():
-    """TP: horizontal output bands across devices, same fused kernel.
-    The sharded result must equal the single-device warp exactly."""
-    from video_annotator_tpu.ops.warp_pallas import plan_warp, warp_frame_pallas
-    from video_annotator_tpu.parallel.streams import warp_frame_pallas_spatial
-
-    in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (320, 240))
-    out_cam = get_output_camera(in_cam, scale=1.0, crop_borders=True)
-    plan = plan_warp(out_cam, in_cam, max_correction_deg=6.0)
-    ny = plan.grid[0]
-    nshards = 2 if ny % 2 == 0 else 1
-    mesh = make_mesh(nshards, axis_names=("space",))
-
-    rng = np.random.default_rng(11)
-    frame = jnp.asarray(np.round(rng.uniform(0, 255, (240, 320))).astype(np.float32))
-    rot = so3.exp(jnp.array([0.02, -0.015, 0.03]))
-
-    got = warp_frame_pallas_spatial(
-        frame, rot, plan, out_cam, in_cam, mesh
-    )
-    want = warp_frame_pallas(frame, rot, plan, out_cam, in_cam, interpret=True)
-    assert got.shape == want.shape
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-4)
-
-
-def test_warp_streams_pallas_sharded_matches_unsharded():
-    """The fused Pallas kernel inside a shard_map DP shard (the
-    production multi-chip encode path) equals the single-device batch."""
-    from video_annotator_tpu.ops.warp_pallas import plan_warp, warp_frames_pallas
-    from video_annotator_tpu.parallel.streams import warp_streams_pallas_sharded
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic", "lanczos"])
+def test_warp_yuv_streams_sharded_rotation_matches_unsharded(interp):
+    """The rotation family's batched uint8 YUV warp
+    (``FrameWarper.warp_frames``, the encode hot path) inside the DP
+    shard_map wrapper equals the unsharded batched warp per stream, up to
+    float32 rounding."""
+    from video_annotator_tpu.parallel.streams import warp_yuv_streams_sharded
+    from video_annotator_tpu.pipeline.render import FrameWarper
 
     in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (128, 96))
     out_cam = get_output_camera(in_cam, scale=1.0, crop_borders=True)
-    plan = plan_warp(out_cam, in_cam, max_correction_deg=6.0)
-    mesh = make_mesh(4, axis_names=("data",))
+    warper = FrameWarper(in_cam, out_cam, interp=interp)
     rng = np.random.default_rng(7)
-    frames = jnp.asarray(
-        np.round(rng.uniform(0, 255, (4, 96, 128))).astype(np.float32)
-    )
-    rots = _random_rotations(4, seed=8)
+    b, h, w = 4, 96, 128
+    ys = jnp.asarray(rng.integers(0, 256, (b, h, w), dtype=np.uint8))
+    us = jnp.asarray(rng.integers(0, 256, (b, h // 2, w // 2), dtype=np.uint8))
+    vs = jnp.asarray(rng.integers(0, 256, (b, h // 2, w // 2), dtype=np.uint8))
+    rots = _random_rotations(b, scale=0.02, seed=8)
 
-    out = warp_streams_pallas_sharded(
-        frames, rots, plan, out_cam, in_cam, mesh
-    )
-    want = warp_frames_pallas(frames, rots, plan, out_cam, in_cam,
-                              interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(want), atol=1e-4)
+    mesh = make_mesh(4, axis_names=("data",))
+    got = warp_yuv_streams_sharded(warper.warp_frames, ys, us, vs, rots, mesh)
+    want = warper.warp_frames(ys, us, vs, rots)
+    for g, w_ in zip(got, want):
+        assert g.dtype == jnp.uint8 and g.shape == w_.shape
+        # Two compilations of the same float32 map may differ in the last
+        # bit, which flips the rounding of an odd pixel by one level.
+        d = np.abs(np.asarray(g).astype(int) - np.asarray(w_).astype(int))
+        assert d.max() <= 1 and (d == 0).mean() >= 0.999
 
 
 def _yuv_batch(b, h, w, seed=0):
@@ -156,7 +138,7 @@ def test_warp_yuv_streams_sharded_similarity_matches_unsharded():
     """The similarity (vidstab) family's DP shard_map path equals the
     unsharded per-frame warp bit-for-bit — sharding the 2D families is
     an execution detail exactly like the rotation family
-    (VERDICT r2 item 6; reference scope src/render.ts:913-989)."""
+    (reference scope src/render.ts:913-989)."""
     from video_annotator_tpu.models.similarity import warp_frame_similarity
     from video_annotator_tpu.parallel.streams import warp_yuv_streams_sharded
 
@@ -211,48 +193,3 @@ def test_warp_yuv_streams_sharded_deshake_matches_unsharded():
                                    atol=1e-4)
         np.testing.assert_allclose(np.asarray(wv[i]), np.asarray(rv),
                                    atol=1e-4)
-
-
-def test_warp_yuv_streams_sharded_similarity_pallas_kernel():
-    """The FUSED Pallas kernel of the similarity family (the TPU encode
-    hot path, SimilarityWarper) inside the DP shard_map wrapper equals
-    the unsharded batched kernel per stream."""
-    from video_annotator_tpu.models.similarity import SimilarityWarper
-    from video_annotator_tpu.ops.warp_pallas import warp_yuv_batch_pallas
-    from video_annotator_tpu.parallel.streams import warp_yuv_streams_sharded
-
-    rng = np.random.default_rng(13)
-    b, h, w = 4, 96, 128
-    corr = np.stack([
-        [4.0, -3.0, 0.02, 0.01],
-        [-5.0, 2.5, -0.015, -0.02],
-        [1.0, 0.0, 0.0, 0.02],
-        [0.0, 1.0, -0.01, 0.0],
-    ]).astype(np.float32)
-    warper = SimilarityWarper(w, h, corr)
-    ys = jnp.asarray(rng.integers(0, 255, (b, h, w), dtype=np.uint8))
-    us = jnp.asarray(rng.integers(0, 255, (b, h // 2, w // 2), dtype=np.uint8))
-    vs = jnp.asarray(rng.integers(0, 255, (b, h // 2, w // 2), dtype=np.uint8))
-    mats = jnp.asarray(SimilarityWarper.matrices(corr))
-
-    def warp_batch(y, u, v, m):
-        outs = warp_yuv_batch_pallas(
-            tuple(y), tuple(u), tuple(v), m, warper.plan_y, warper.cam,
-            warper.cam, warper.plan_c, warper.cam_c, warper.cam_c,
-            interpret=True,
-        )
-        wys, wus, wvs = zip(*outs)
-        return jnp.stack(wys), jnp.stack(wus), jnp.stack(wvs)
-
-    mesh = make_mesh(4, axis_names=("data",))
-    wy, wu, wv = warp_yuv_streams_sharded(warp_batch, ys, us, vs, mats, mesh)
-
-    ref = warp_yuv_batch_pallas(
-        tuple(ys), tuple(us), tuple(vs), mats, warper.plan_y, warper.cam,
-        warper.cam, warper.plan_c, warper.cam_c, warper.cam_c,
-        interpret=True,
-    )
-    for i in range(b):
-        np.testing.assert_array_equal(np.asarray(wy[i]), np.asarray(ref[i][0]))
-        np.testing.assert_array_equal(np.asarray(wu[i]), np.asarray(ref[i][1]))
-        np.testing.assert_array_equal(np.asarray(wv[i]), np.asarray(ref[i][2]))

@@ -438,3 +438,30 @@ def test_cli_analysis_scale_parsing():
     with pytest.raises(SystemExit):
         p.parse_args(["render", "in.mp4", "out.mp4",
                       "--analysis-scale", "0.3"])
+
+
+def test_analyse_trackers_are_shared_per_geometry():
+    """Analyses of one geometry reuse one set of jitted trackers (one
+    trace and compile per process); any input that changes the tracking
+    math gives a separate set."""
+    from fractions import Fraction
+
+    from video_annotator_tpu.io.video import VideoMeta
+    from video_annotator_tpu.pipeline.render import (
+        RenderOptions,
+        _make_pair_tracker,
+        _make_tracker,
+    )
+
+    meta = VideoMeta(640, 480, Fraction(30, 1), 10)
+    opts = RenderOptions(stabilise="smooth")
+    assert _make_tracker(meta, opts) is _make_tracker(
+        VideoMeta(640, 480, Fraction(60, 1), 99), RenderOptions())
+    assert _make_pair_tracker(meta, opts) is _make_pair_tracker(meta, opts)
+    for changed in (dict(analysis_iters=4), dict(input_dfov=120.0),
+                    dict(analysis_scale=0.5)):
+        other = RenderOptions(stabilise="smooth", **changed)
+        assert _make_tracker(meta, other) is not _make_tracker(meta, opts)
+    assert _make_pair_tracker(
+        meta, RenderOptions(analysis_detect_level=0)
+    ) is not _make_pair_tracker(meta, opts)

@@ -40,53 +40,54 @@ def test_rs_row_rotations_constant_velocity():
 
 
 def test_rs_kernel_matches_oracle():
-    """Pallas per-tile-row rotations == XLA oracle, luma and full YUV."""
-    from video_annotator_tpu.ops.warp_pallas import (
-        plan_warp,
-        warp_frame_pallas,
-        warp_yuv_pallas,
-    )
+    """Per-band rotation stacks through the batched uint8 warp
+    (``FrameWarper``) == the float XLA oracle, luma and full YUV."""
     from video_annotator_tpu.ops.warp_xla import (
+        RS_BAND_ROWS,
         _scaled_camera,
+        chroma_row_rotations,
         warp_image_xla,
     )
+    from video_annotator_tpu.pipeline.render import FrameWarper
 
     rng = np.random.default_rng(0)
     in_cam = camera_from_dfov(130.0, (256, 192), CameraModel.FISHEYE)
     out_cam = get_output_camera(in_cam, crop_borders=True)
-    oh = out_cam.height - out_cam.height % 2
-    ow = out_cam.width - out_cam.width % 2
-    plan = plan_warp(out_cam, in_cam, 5.0, (oh, ow))
-    ny = plan.grid[0]
+    warper = FrameWarper(in_cam, out_cam)
+    oh, ow = warper.out_h, warper.out_w
+    ny = -(-oh // RS_BAND_ROWS)
     rots = jnp.asarray(np.stack([
         np.asarray(so3.exp(jnp.asarray(
             [0.01 * i / ny, -0.02 * i / ny, 0.03 * i / ny], jnp.float32)))
         for i in range(ny)
     ]))
-    frame = rng.integers(0, 255, (192, 256)).astype(np.float32)
-
-    got = np.asarray(warp_frame_pallas(
-        jnp.asarray(frame), rots, plan, out_cam, in_cam, interpret=True))
-    want = np.asarray(warp_image_xla(
-        jnp.asarray(frame), out_cam, in_cam, rots, (oh, ow)))
-    assert np.abs(got - want).max() < 0.6
-
-    # Full-YUV path (chroma quantizes to 16-row luma granularity).
-    in_half = _scaled_camera(in_cam, 0.5)
-    out_half = _scaled_camera(out_cam, 0.5)
-    plan_c = plan_warp(out_half, in_half, 5.0, (oh // 2, ow // 2))
+    frame = rng.integers(0, 255, (192, 256)).astype(np.uint8)
     u = rng.integers(0, 255, (96, 128)).astype(np.uint8)
     v = rng.integers(0, 255, (96, 128)).astype(np.uint8)
-    wy, wu, wv = warp_yuv_pallas(
-        jnp.asarray(frame.astype(np.uint8)), jnp.asarray(u), jnp.asarray(v),
-        rots, plan, out_cam, in_cam, plan_c, out_half, in_half,
-        interpret=True,
-    )
+
+    wy, wu, wv = warper.warp_yuv(
+        jnp.asarray(frame), jnp.asarray(u), jnp.asarray(v), rots)
+    want = np.asarray(warp_image_xla(
+        jnp.asarray(frame, jnp.float32), out_cam, in_cam, rots, (oh, ow)))
     np.testing.assert_allclose(
         np.asarray(wy).astype(np.float32), np.clip(np.round(want), 0, 255),
         atol=1.0,
     )
-    assert wu.shape == (oh // 2, ow // 2)
+    # The stack really bends the map: rows differ from a one-rotation warp.
+    flat = np.asarray(warp_image_xla(
+        jnp.asarray(frame, jnp.float32), out_cam, in_cam, rots[-1], (oh, ow)))
+    assert np.abs(want[:8] - flat[:8]).mean() > 1.0
+
+    # Chroma quantizes to 16-row luma granularity, neutral border.
+    rot_c = chroma_row_rotations(rots, -(-(oh // 2) // RS_BAND_ROWS))
+    want_u = np.asarray(warp_image_xla(
+        jnp.asarray(u, jnp.float32) - 128.0, _scaled_camera(out_cam, 0.5),
+        _scaled_camera(in_cam, 0.5), rot_c, (oh // 2, ow // 2))) + 128.0
+    assert wu.shape == (oh // 2, ow // 2) and wv.shape == wu.shape
+    np.testing.assert_allclose(
+        np.asarray(wu).astype(np.float32), np.clip(np.round(want_u), 0, 255),
+        atol=1.0,
+    )
 
 
 def test_rs_render_removes_jello(tmp_path):

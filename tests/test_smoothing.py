@@ -1,6 +1,7 @@
 """SG/Kalman/gyro smoothing tests: polynomial reproduction, jitter removal."""
 
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 
@@ -187,3 +188,23 @@ def test_kalman_survives_pi_crossing():
     )))
     err_deg = np.degrees(np.linalg.norm(err, axis=1))
     assert err_deg.max() < 10.0, err_deg.max()
+
+
+@pytest.mark.parametrize("radius,order", [(3, 2), (15, 2), (30, 3)])
+def test_sg_conv_matches_scipy_savgol_filter(radius, order):
+    """``sg_conv`` over a replicate-padded block IS scipy's savgol_filter
+    with ``mode="nearest"`` — pinned at 1e-6 so a reduced-precision
+    (TF32) convolution on an accelerator would fail it."""
+    from scipy.signal import savgol_filter
+
+    from video_annotator_tpu.smoothing.savgol import sg_conv
+
+    rng = np.random.default_rng(radius)
+    x = rng.uniform(-1.0, 1.0, (200, 9)).astype(np.float32)
+    padded = np.concatenate(
+        [np.repeat(x[:1], radius, 0), x, np.repeat(x[-1:], radius, 0)])
+    got = np.asarray(sg_conv(jnp.asarray(padded),
+                             jnp.asarray(savgol_weights(radius, order))))
+    want = savgol_filter(x.astype(np.float64), 2 * radius + 1, order,
+                         axis=0, mode="nearest")
+    np.testing.assert_allclose(got, want, atol=1e-6)

@@ -2,8 +2,8 @@
 
 The reference's native engine streams frames through a lookahead window
 (``opencv/FrameSourceWarp.cpp:452-464``); ``pipeline/streaming.py`` is
-that shape on TPU. These tests pin its contract: identical output to the
-two-phase analyse/encode for every stabilise mode (same SG weights, same
+that shape on an accelerator. These tests pin its contract: identical
+output to the two-phase analyse/encode for every stabilise mode (same SG weights, same
 replicate-clamp EOF semantics), under trimming and short-clip radii.
 """
 
@@ -67,7 +67,7 @@ def test_streaming_matches_two_phase(tmp_path, mode, extra):
 
 
 def test_streaming_paired_matches_two_phase_paired(tmp_path):
-    """``--streaming --analysis-mode paired`` (the TPU default shape)
+    """``--streaming --analysis-mode paired`` (the accelerator default shape)
     batches pair groups inside the lookahead ring; the chunk dispatches
     are keyed by global pair index, so the trajectory is BIT-identical
     to the two-phase paired analyse and the rendered output matches to
@@ -106,20 +106,6 @@ def test_streaming_respects_trim(tmp_path):
     render(SRC, one, RenderOptions(streaming=True, **trim, **OPTS))
     _assert_same_video(two, one)
     assert len(_frames(one)) == 12  # 0.4 s at 30 fps
-
-
-def test_max_rotation_deg():
-    import jax.numpy as jnp
-
-    from video_annotator_tpu import so3
-    from video_annotator_tpu.pipeline.render import max_rotation_deg
-
-    rots = np.stack([
-        np.asarray(so3.exp(jnp.asarray([0.0, 0.0, np.radians(d)])))
-        for d in (1.0, 17.5, -6.0)
-    ])
-    assert abs(max_rotation_deg(rots) - 17.5) < 1e-3
-    assert max_rotation_deg(np.zeros((0, 3, 3))) == 0.0
 
 
 def test_streaming_rejects_phases_and_2d(tmp_path):

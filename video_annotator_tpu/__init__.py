@@ -1,14 +1,14 @@
-"""video_annotator_tpu — a TPU-native (JAX/XLA/Pallas) video stabilization framework.
+"""video_annotator_tpu — a JAX/XLA video stabilization framework.
 
 A ground-up rebuild of the capabilities of ``hedgepigdaniel/video-annotator``
-(fisheye action-camera stabilization + reprojection) designed for TPU:
+(fisheye action-camera stabilization + reprojection) on one accelerator:
 
 - ``camera`` / ``so3``: pure-JAX camera models (rectilinear + equidistant
   fisheye) and SO(3) utilities (the math inside the reference's
   ``opencv/createMap.cl`` and ``opencv/FrameSourceWarp.cpp``).
-- ``ops``: compute kernels — fused map-generation + bilinear-remap warp
-  (Pallas with an XLA fallback), Shi-Tomasi corners, pyramidal Lucas-Kanade
-  optical flow, batched rotation RANSAC.
+- ``ops``: compute kernels — fused map-generation + remap warp (plain
+  XLA), Shi-Tomasi corners, pyramidal Lucas-Kanade optical flow, batched
+  rotation RANSAC.
 - ``smoothing``: Savitzky-Golay on SO(3), Kalman, and GPMF-gyro-driven
   trajectory filters as ``lax.scan``-able transforms.
 - ``models``: stabilizer families mirroring the reference's filter choices
@@ -28,20 +28,20 @@ import os as _os
 
 import jax as _jax
 
-# Persistent executable cache: every CLI invocation is a fresh process and
-# the big Pallas warp/LK kernels cost minutes of (remote) compile time.
-# Harmless where the backend doesn't support serialization. Opt out with
-# VAT_NO_COMPILE_CACHE=1.
-if not _os.environ.get("VAT_NO_COMPILE_CACHE"):
-    _cache = _os.environ.get(
-        "JAX_COMPILATION_CACHE_DIR",
-        _os.path.join(_os.path.expanduser("~"), ".cache", "vat_jax"),
+# Persistent executable cache: every CLI invocation is a fresh process,
+# and the 4K warp and analyse executables take seconds to compile. JAX
+# itself honours JAX_COMPILATION_CACHE_DIR; without it the cache lives in
+# the checkout (``.jax_cache``, git-ignored) at a fixed path, so reruns
+# hit it. Opt out with VAT_NO_COMPILE_CACHE=1.
+if not (_os.environ.get("VAT_NO_COMPILE_CACHE")
+        or _os.environ.get("JAX_COMPILATION_CACHE_DIR")):
+    _jax.config.update(
+        "jax_compilation_cache_dir",
+        _os.path.join(
+            _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+            ".jax_cache",
+        ),
     )
-    try:
-        _jax.config.update("jax_compilation_cache_dir", _cache)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
 
 from video_annotator_tpu.camera import (  # noqa: F401
     Camera,

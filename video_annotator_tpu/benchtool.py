@@ -4,8 +4,7 @@ The reference ships a micro-benchmark comparing core image ops across
 execution paths with mean±stddev over repeated runs
 (``opencv/OpenClTest.cpp:65-427``: cvtColor / GaussianBlur / Canny x
 {Mat, UMat} x {OpenCL on/off}, 50 reps). This tool does the same for the
-framework's hot ops on whatever backend jax resolves (TPU or CPU), pitting
-the Pallas warp against its XLA twin.
+framework's hot ops on whatever backend jax resolves.
 
 Run: ``python -m video_annotator_tpu.benchtool [--size WxH] [--reps N]``
 """
@@ -20,8 +19,8 @@ import time
 def _time(fn, reps: int):
     """(throughput ms, latency ms±sd): pipelined issue vs blocked round trips.
 
-    Streaming pipelines see throughput; the blocked number includes host
-    round-trip latency (large over remote-tunnel backends).
+    Streaming pipelines see throughput; the blocked number includes the
+    host round trip.
     """
     _block(fn())  # warm up / compile
     t0 = time.perf_counter()
@@ -66,7 +65,6 @@ def main(argv=None) -> int:
     )
     from video_annotator_tpu.ops.corners import detect_corners
     from video_annotator_tpu.ops.lk import pyramidal_lk
-    from video_annotator_tpu.ops.warp_pallas import plan_warp, warp_frame_pallas
     from video_annotator_tpu.ops.warp_xla import warp_image_xla
     from video_annotator_tpu.smoothing.savgol import smooth_rotations
 
@@ -81,12 +79,6 @@ def main(argv=None) -> int:
     rot = so3.exp(jnp.asarray([0.02, -0.01, 0.03], jnp.float32))
 
     rows = []
-    if backend != "cpu":
-        plan = plan_warp(out_cam, in_cam, 6.0)
-        rows.append((
-            "warp (pallas fused)",
-            lambda: warp_frame_pallas(img, rot, plan, out_cam, in_cam),
-        ))
     rows.append((
         "warp (XLA gather)",
         lambda: warp_image_xla(img, out_cam, in_cam, rot),
@@ -98,13 +90,6 @@ def main(argv=None) -> int:
     rows.append((
         "pyramidal_lk (256 pts)", lambda: pyramidal_lk(img, img2, pts, valid)
     ))
-    if backend != "cpu":
-        from video_annotator_tpu.ops.lk_pallas import pyramidal_lk_pallas
-
-        rows.append((
-            "pyramidal_lk (pallas)",
-            lambda: pyramidal_lk_pallas(img, img2, pts, valid),
-        ))
     traj = so3.exp(jnp.asarray(rng.normal(size=(600, 3)) * 0.01, jnp.float32))
     rows.append((
         "sg smooth (600 frames, r=90)",
@@ -113,11 +98,8 @@ def main(argv=None) -> int:
 
     print(f"{'op':32s} {'throughput':>12s} {'latency':>18s}")
     for name, fn in rows:
-        try:
-            thru, lat, sd = _time(fn, args.reps)
-            print(f"{name:32s} {thru:9.3f} ms {lat:11.3f} ± {sd:5.2f} ms")
-        except Exception as e:  # keep reporting the rest
-            print(f"{name:32s} FAILED: {str(e).splitlines()[0][:90]}")
+        thru, lat, sd = _time(fn, args.reps)
+        print(f"{name:32s} {thru:9.3f} ms {lat:11.3f} ± {sd:5.2f} ms")
     return 0
 
 

@@ -3,7 +3,7 @@
 Replaces the reference's OpenCV-sample calibration tool
 (``opencv/camera_calibration/camera_calibration.cpp``: chessboard views ->
 ``fisheye::calibrate`` at ``:574`` / ``calibrateCameraRO`` at ``:587-589``,
-reporting RMS reprojection error at ``:488,600-606``). TPU-native approach:
+reporting RMS reprojection error at ``:488,600-606``). Approach here:
 the projection model is already differentiable JAX code (``camera.py``), so
 calibration is plain gradient-based nonlinear least squares over
 (fx, fy, cx, cy, k1..k4, per-view pose) — no bespoke solver, and the same

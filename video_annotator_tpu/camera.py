@@ -306,7 +306,7 @@ def _distort_theta(theta: jax.Array, dist: jax.Array) -> jax.Array:
 def _undistort_theta(theta_d: jax.Array, dist: jax.Array) -> jax.Array:
     # Unrolled fixed-point iteration (10 steps, like cv2.fisheye): a Python
     # loop keeps this usable both under jit and eagerly (an eager
-    # lax.fori_loop triggers a compile per call on remote TPU backends).
+    # lax.fori_loop compiles on every call).
     theta = theta_d
     for _ in range(10):
         t2 = theta * theta
@@ -318,8 +318,8 @@ def _undistort_theta(theta_d: jax.Array, dist: jax.Array) -> jax.Array:
 def unproject_np(camera: "Camera", ys, xs):
     """NumPy (f64) twin of :meth:`Camera.unproject` over pixel grids.
 
-    Host-side warp planning (``ops/warp_pallas.py``) and the
-    non-rectilinear kernels' precomputed ray grids need exact
+    The host-side reference map (``ops/warp_ref.warp_map_np``: the
+    prefilter level choice and the test and chip oracles) needs exact
     output-model unprojection without a device round trip. Must stay in
     lock-step with :meth:`Camera.unproject` for every model.
     """

@@ -6,7 +6,7 @@ stabilize/reproject pipeline. Hardware-plumbing options that made sense for
 VAAPI/OpenCL (``--hw-accel``, ``--vaapi-vendor``, ``--open-cl-platform``,
 ``--no-map-open-cl-from-vaapi``, ``--copy-vaapi-frames``) are accepted as
 inert compatibility shims (existing scripts run unmodified, a note points
-at the TPU-native equivalents: ``--warp-batch``, ``--prefetch-depth``,
+at the device-pipeline equivalents: ``--warp-batch``, ``--prefetch-depth``,
 ``--no-native-io``, ``--analysis-scale``).
 
 Usage::
@@ -50,8 +50,8 @@ def _analysis_scale(value):
 
 
 class _CompatAction(argparse.Action):
-    """Accept a reference-CLI flag that has no TPU meaning, note the
-    TPU-native equivalent once on stderr, and otherwise do nothing —
+    """Accept a reference-CLI flag that has no meaning here, note the
+    equivalent once on stderr, and otherwise do nothing —
     so reference users' existing scripts (``src/cli.ts:34-178``,
     ``concat.sh:281``, ``dewobble_test.sh``) run unmodified."""
 
@@ -63,7 +63,7 @@ class _CompatAction(argparse.Action):
         hint = f"; {self._hint}" if self._hint else ""
         print(
             f"note: {option_string} is accepted for reference "
-            f"compatibility and has no effect on TPU{hint}",
+            f"compatibility and has no effect here{hint}",
             file=sys.stderr,
         )
 
@@ -71,7 +71,7 @@ class _CompatAction(argparse.Action):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="video-annotator-tpu",
-        description="TPU-native action-camera stabilization & reprojection",
+        description="Action-camera stabilization & reprojection (JAX/XLA)",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -112,13 +112,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Warp resampler: bilinear (the native engine's "
                         "INTER_LINEAR), bicubic (the reference's vidstab "
                         "interpol=bicubic), or lanczos (v360's "
-                        "interp=lanczos, 4x4 windowed sinc); all three "
-                        "run the fused Pallas kernel on TPU (4-tap mode "
-                        "for the higher-order two), XLA gathers on CPU")
+                        "interp=lanczos, 4x4 windowed sinc); one batched "
+                        "XLA warp on every backend")
     r.add_argument("--prefilter", default="off", choices=["off", "auto"],
                    help="Mip-prefilter minifying inputs before the warp "
-                        "(antialias + faster kernel; off = exact bilinear "
-                        "like the reference)")
+                        "(one global level that blurs no output pixel; "
+                        "off = exact bilinear like the reference)")
     # Bare --crop: auto-crop borders to the fully-covered region (the
     # native engine's crop_borders). --crop W:H[:X:Y]: output crop
     # rectangle in ffmpeg crop-filter syntax, X/Y defaulting to centered
@@ -165,10 +164,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="GoPro camera preset name (e.g. gopro_h4b_wide43_measured)")
     r.add_argument("--gyro", action="store_true",
                    help="Use the GPMF gyro track for motion analysis")
-    r.add_argument("--max-correction", type=float, default=8.0,
-                   help="Per-frame correction budget (degrees) the warp "
-                        "plan is sized for; the two-phase path auto-raises "
-                        "it from the computed trajectory")
+    r.add_argument("--max-correction", action=_CompatAction, nargs=1,
+                   metavar="DEG",
+                   hint="the warp samples any correction, so nothing is "
+                        "bounded",
+                   help="Accepted for compatibility; bounds nothing")
     r.add_argument("--streaming", action="store_true",
                    help="Single-pass render: decode once, smooth through a "
                         "bounded lookahead window (identical output to the "
@@ -219,10 +219,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tracked = sequential point-carryover tracker "
                         "(reference-faithful); paired = fresh corners "
                         "every frame, all adjacent pairs batched into "
-                        "one kernel launch per pyramid level (same "
-                        "estimator and gates, ~3-4x faster analyse on "
-                        "TPU); auto (default) = paired on TPU, tracked "
-                        "on CPU")
+                        "one batched dispatch (same estimator and "
+                        "gates); auto (default) = paired on an "
+                        "accelerator, tracked on CPU")
     r.add_argument("--analysis-detect-level", type=int, default=1,
                    help="paired mode: detect corners this many pyramid "
                         "levels below the tracking resolution (LK "
@@ -251,13 +250,13 @@ def build_parser() -> argparse.ArgumentParser:
     # scripts pass these (src/cli.ts:125-160); accept them with a note
     # instead of an argparse error so migration is drop-in.
     r.add_argument("--hw-accel", action=_CompatAction, nargs=1,
-                   hint="decode runs on the host CPU feeding the TPU "
+                   hint="decode runs on the host CPU feeding the device "
                         "(see --no-native-io / --prefetch-depth)",
                    help=argparse.SUPPRESS)
     r.add_argument("--vaapi-vendor", action=_CompatAction, nargs=1,
                    hint="no VAAPI device here", help=argparse.SUPPRESS)
     r.add_argument("--open-cl-platform", action=_CompatAction, nargs=1,
-                   hint="kernels run on the TPU via Pallas",
+                   hint="kernels run on the accelerator through XLA",
                    help=argparse.SUPPRESS)
     r.add_argument("--no-map-open-cl-from-vaapi", action=_CompatAction,
                    nargs=0, hint="no OpenCL/VAAPI interop here",
@@ -458,7 +457,6 @@ def _render_options(args) -> "RenderOptions":
         preview=getattr(args, "preview", None),
         preview_every=getattr(args, "preview_every", 30),
         display=getattr(args, "display", False),
-        max_correction_deg=getattr(args, "max_correction", 8.0),
         prefilter=getattr(args, "prefilter", "off"),
         interp=getattr(args, "interp", "bilinear"),
         debug=getattr(args, "debug", False),
@@ -470,7 +468,7 @@ def _render_options(args) -> "RenderOptions":
 def probe(source: str) -> dict:
     """Source metadata as a JSON-friendly dict.
 
-    The TPU-native stand-in for the reference's ffprobe shell-outs
+    The in-process stand-in for the reference's ffprobe shell-outs
     (``src/utils.ts:3-11``, ``src/render.ts:1298-1322``): video stream
     geometry/fps/frames, container tracks, and a GPMF telemetry summary.
     """

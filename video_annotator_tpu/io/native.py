@@ -3,7 +3,7 @@
 ``native/loader.cpp`` demuxes + decodes on a dedicated thread (plus
 libavcodec's internal frame threading) into a planar-YUV ring buffer — the
 reference's native decode chain (``opencv/AvFrameSourceFileVaapi.cpp`` ff.)
-rebuilt for a host-CPU -> TPU pipeline. Falls back silently when the shared
+rebuilt for a host-CPU -> accelerator pipeline. Falls back silently when the shared
 library hasn't been built (``make -C native``).
 """
 

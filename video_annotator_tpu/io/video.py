@@ -10,8 +10,8 @@ YUV 4:2:0 numpy frames:
 - ``synthetic://...``: the ground-truth generator (``io/synthetic.py``).
 
 All readers yield ``(y, u, v)`` uint8 planes; all writers accept them.
-The TPU feed path (``io/prefetch.py``) double-buffers these into device
-memory.
+The device feed path (``io/prefetch.py``) double-buffers these into
+device memory.
 """
 
 from __future__ import annotations
@@ -187,8 +187,8 @@ class _FfmpegSink:
     (h264_vaapi / h264_nvenc / h264_amf / hevc_* — the reference's
     hardware-encode targets, ``src/render.ts:275-281``,
     ``concat.sh:216,323``): pipe Y4M into an ``ffmpeg`` binary that owns
-    the GPU encoder. A TPU host has no GPU encoder, so this only engages
-    when an ffmpeg binary is on PATH (remote/hybrid render boxes)."""
+    the hardware encoder. It only engages when an ffmpeg binary is on
+    PATH."""
 
     def __init__(self, path: str, meta: VideoMeta, encoder: str,
                  qp: int = 19, binary: Optional[str] = None):

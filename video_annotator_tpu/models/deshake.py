@@ -5,7 +5,7 @@ Equivalent of ffmpeg's ``deshake`` (block-matching global motion,
 ``smooth_window_multiplier`` and the edge-blur treatment the reference
 builds from a ``geq`` alpha ramp + blur, ``getBlurEdgesPipeline``,
 ``src/render.ts:773-855``). Motion comes from FFT phase correlation
-(branch-free, TPU-dense); borders revealed by the correction are filled
+(branch-free, dense on device); borders revealed by the correction are filled
 with a blurred copy instead of black.
 """
 
@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from video_annotator_tpu.ops.mip import box_downsample
 from video_annotator_tpu.ops.phasecorr import phase_correlate
 from video_annotator_tpu.pipeline.profiler import StageProfiler
 from video_annotator_tpu.pipeline.trajectory import Trajectory
@@ -38,7 +39,6 @@ def analyse_deshake(
     from video_annotator_tpu.pipeline.render import analysis_level
 
     level = analysis_level(options, meta)
-    from video_annotator_tpu.ops.warp_pallas import box_downsample
 
     # Measurement-quality gate: normalized confidence below 1.5 means
     # the correlation surface has no trustworthy peak (scene cut, flat
@@ -56,8 +56,7 @@ def analyse_deshake(
     @jax.jit
     def track_step(prev_small, gray, acc, prev_d):
         # d such that curr(x) ~= prev(x - d): camera moved by +d. Runs
-        # and accumulates on device — no per-frame host sync (each
-        # blocked round trip costs ~30-90 ms over a remote backend).
+        # and accumulates on device — no per-frame host sync.
         small = box_downsample(gray, level).astype(jnp.float32) \
             if level else gray.astype(jnp.float32)
         d, conf = phase_correlate(small, prev_small)
@@ -153,10 +152,10 @@ def _blur_band(n: int, sigma: float) -> np.ndarray:
 
     Row i accumulates the kernel weight of tap i+d onto clip(i+d, 0, n-1)
     — exactly a mode="edge"-padded 1D convolution, as a dense banded
-    matrix. Two of these matmuls ARE the separable blur, and they run on
-    the MXU: the straightforward 49-tap depthwise conv lowers to ~49
-    shifted HBM passes and measured 75 ms/frame at 4K on v5e, while the
-    banded-matmul form measures ~2 ms.
+    matrix. Two of these matmuls ARE the separable blur (a 49-tap
+    depthwise conv would lower to ~49 shifted passes over the frame).
+    At 4K this is ~0.19 TFLOP per YUV frame in f32 HIGHEST precision;
+    ``chip_smoke.py`` times it on the card.
     """
     radius = int(3 * sigma)
     d = np.arange(-radius, radius + 1)
@@ -185,8 +184,7 @@ def warp_frame_deshake(y, u, v, offset, blur_edges: bool = True):
         # A pure translation needs no 2D gather: each bilinear tap is the
         # image advanced by an integer offset, i.e. two AXIS-WISE takes
         # with 1-D clamped index vectors (row permutation + lane
-        # permutation) — XLA lowers these at near-copy speed, vs the
-        # per-pixel gather path's ~245 ms/frame at 4K on TPU. Out-of-
+        # permutation) — XLA lowers these at near-copy speed. Out-of-
         # image taps are masked to zero (exactly bilinear_sample's
         # BORDER_CONSTANT) or, for the blur background, left clamped
         # (exactly the replicate-edge sample of the blurred frame).

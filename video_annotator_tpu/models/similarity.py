@@ -25,7 +25,7 @@ from video_annotator_tpu.ops.affine import (
 )
 from video_annotator_tpu.ops.corners import detect_corners
 from video_annotator_tpu.ops.lk import pyramidal_lk
-from video_annotator_tpu.ops.lk_pallas import pyramidal_lk_pallas
+from video_annotator_tpu.ops.mip import box_downsample
 from video_annotator_tpu.pipeline.profiler import StageProfiler
 from video_annotator_tpu.pipeline.trajectory import Trajectory
 from video_annotator_tpu.smoothing.savgol import savgol_weights, sg_conv
@@ -59,8 +59,6 @@ def analyse_similarity(
 
     import functools as _ft
 
-    from video_annotator_tpu.ops.warp_pallas import box_downsample
-
     def _track_res(gray):
         return box_downsample(gray, level) if level else gray
 
@@ -68,12 +66,10 @@ def analyse_similarity(
     def track_step(prev_gray, gray, pts, valid, prev_params, acc, refresh_age):
         """Fully-device analyse step (same shape as the rotation family's,
         ``pipeline/render.py``): track + fit + accumulate + conditional
-        corner refresh, with no per-frame host read. Over a remote backend
-        a blocked device->host round trip costs ~30-90 ms/frame — this
-        loop syncs once, at the end of the clip."""
+        corner refresh, with no per-frame host read — this loop syncs
+        once, at the end of the clip."""
         gray = _track_res(gray)
-        lk = pyramidal_lk if jax.default_backend() == "cpu" else pyramidal_lk_pallas
-        new_pts, status = lk(prev_gray, gray, pts, valid)
+        new_pts, status = pyramidal_lk(prev_gray, gray, pts, valid)
         params, inliers = fit_similarity(pts, new_pts, status)
         params = jnp.where(inliers >= min_inliers, params, prev_params)
         acc = compose_similarity(params, acc)
@@ -223,114 +219,3 @@ def warp_frame_similarity(y, u, v, sample_params, interp="bilinear",
     wv = warp_similarity(v - 128.0, half, interp=interp,
                          out_size=half_size) + 128.0
     return wy, wu, wv
-
-
-class SimilarityWarper:
-    """Fused-Pallas batched warp for the similarity family (TPU encode).
-
-    A 2D similarity is a 3x3 homogeneous pixel matrix, so the rotation
-    family's fused kernel runs it UNCHANGED over identity pinhole
-    cameras (f=1, c=0): the kernel's rectilinear path computes
-    ``M @ (x, y, 1)`` with a perspective divide by the constant 1
-    (``ops/affine.similarity_matrix``). Chroma planes use f=0.5
-    cameras, which conjugates M into the half-resolution frame —
-    exactly the ``params * [0.5, 0.5, 1, 1]`` transform
-    :func:`warp_frame_similarity` applies.
-
-    The two-phase design knows every correction up front, so the plan
-    probes the CLIP'S OWN extremes (all corner combinations of the
-    per-parameter min/max, slightly padded) instead of a worst-case
-    rotation budget. Replaces the XLA gather path's ~245 ms/frame at 4K
-    (the reference's vidstabtransform runs this loop on CPU,
-    ``src/render.ts:546-585``).
-    """
-
-    def __init__(self, width: int, height: int, corrections: np.ndarray,
-                 interp: str = "bilinear", out_size=None):
-        from video_annotator_tpu.camera import Camera, CameraModel
-        from video_annotator_tpu.ops.warp_pallas import plan_warp
-
-        if out_size is not None:
-            # --upsample fold: a larger canvas whose sampling transforms
-            # already carry the shrunken log-scale (encode_2d).
-            self.out_h, self.out_w = out_size
-        else:
-            self.out_w = width - width % 2
-            self.out_h = height - height % 2
-        self.cam = Camera.make(1.0, 1.0, 0.0, 0.0, width, height,
-                               CameraModel.RECTILINEAR)
-        # f=0.5, c=0: chroma coordinate x_c unprojects to 2*x_c and the
-        # mapped source projects to sx/2 — the exact half-translation
-        # conjugation the XLA path uses (not _scaled_camera's
-        # pixel-center variant, so both backends match bit-for-bit).
-        self.cam_c = Camera.make(0.5, 0.5, 0.0, 0.0, width // 2,
-                                 height // 2, CameraModel.RECTILINEAR)
-
-        corr = np.asarray(corrections, np.float64).reshape(-1, 4)
-        if corr.shape[0] == 0:
-            # An empty trim window still constructs the warper before
-            # the frame loop decides there is nothing to warp; plan for
-            # the identity instead of crashing on an empty reduction.
-            corr = np.zeros((1, 4))
-        lo, hi = corr.min(axis=0), corr.max(axis=0)
-        pad = np.array([2.0, 2.0, 0.005, 0.01]) + 0.05 * (hi - lo)
-        lo, hi = lo - pad, hi + pad
-
-        # Probe set: translation shifts the whole map uniformly — it
-        # moves each tile's window ORIGIN (computed per frame by the
-        # origin pass) but not its source SPAN, which is what the plan
-        # sizes. So probe every (angle, zoom) corner, pairing each with
-        # both translation extremes (translation only matters through
-        # the out-of-image clipping at borders): 9 probes instead of
-        # the full 16-corner product — planning is a ~60 s full-res f64
-        # pass per extra probe at 4K on one host core.
-        combos = np.asarray([
-            (dx, dy, ang, ls)
-            for ang in (lo[2], hi[2])
-            for ls in (lo[3], hi[3])
-            for dx, dy in ((lo[0], lo[1]), (hi[0], hi[1]))
-        ])
-        # Probe matrices come from the SAME params->matrix mapping the
-        # runtime uses (ops/affine.similarity_matrix via matrices()) so
-        # plan and kernel can never desynchronize.
-        probe_mats = list(self.matrices(combos).astype(np.float64))
-        self.plan_y = plan_warp(
-            self.cam, self.cam, out_size=(self.out_h, self.out_w),
-            interp=interp, probe_mats=probe_mats,
-        )
-        self.plan_c = plan_warp(
-            self.cam_c, self.cam_c,
-            out_size=(self.out_h // 2, self.out_w // 2),
-            interp=interp, probe_mats=probe_mats,
-        )
-
-    @staticmethod
-    def matrices(corrections: np.ndarray) -> np.ndarray:
-        """(T, 4) params -> (T, 3, 3) f32 matrices for the kernel."""
-        from video_annotator_tpu.ops.affine import similarity_matrix
-
-        return np.asarray(
-            jax.vmap(similarity_matrix)(
-                jnp.asarray(corrections, jnp.float32)
-            )
-        )
-
-    def warp_yuv_batch(self, ys, us, vs, mats):
-        from video_annotator_tpu.ops.warp_pallas import (
-            warp_yuv_batch_pallas,
-        )
-
-        return warp_yuv_batch_pallas(
-            ys, us, vs, mats, self.plan_y, self.cam, self.cam,
-            self.plan_c, self.cam_c, self.cam_c,
-        )
-
-    def warp_yuv(self, y, u, v, mat):
-        """Single-frame fused warp (uint8 planes) — the compare grid's
-        per-cell path."""
-        from video_annotator_tpu.ops.warp_pallas import warp_yuv_pallas
-
-        return warp_yuv_pallas(
-            y, u, v, mat, self.plan_y, self.cam, self.cam,
-            self.plan_c, self.cam_c, self.cam_c,
-        )

@@ -1,4 +1,4 @@
-"""Compute kernels: warp (Pallas + XLA), corners, optical flow, RANSAC."""
+"""Compute kernels: warp, corners, optical flow, RANSAC (plain XLA)."""
 
 from video_annotator_tpu.ops.warp_xla import (  # noqa: F401
     bilinear_sample,

@@ -100,11 +100,8 @@ def similarity_matrix(params: jax.Array) -> jax.Array:
     """(4,) (dx, dy, angle, log_scale) -> 3x3 homogeneous pixel matrix.
 
     ``M @ (x, y, 1)`` equals the source coordinates
-    :func:`warp_similarity` samples — which lets the similarity family
-    ride the fused Pallas rotation kernel unchanged: over identity
-    pinhole cameras (f=1, c=0) the kernel computes exactly
-    ``M @ (x, y, 1)`` with a perspective divide by the constant 1
-    (``ops/warp_pallas._make_kernel``'s rectilinear path).
+    :func:`warp_similarity` samples (the cv2 ``warpAffine`` oracle's
+    inverse map).
     """
     dx, dy, ang, ls = params[0], params[1], params[2], params[3]
     s = jnp.exp(ls)

@@ -1,12 +1,13 @@
-"""Shi-Tomasi (min-eigenvalue) corner detection, vectorized for TPU.
+"""Shi-Tomasi (min-eigenvalue) corner detection, vectorized for a device.
 
 Replaces ``cv::goodFeaturesToTrack(image, corners, 200, 0.01, 30)``
 (``opencv/FrameSourceWarp.cpp:228-240``). The reference's greedy
-min-distance suppression is inherently sequential; the TPU-native
-formulation gets the same spatial spread with a fixed-shape algorithm:
+min-distance suppression is inherently sequential; this formulation gets
+the same spatial spread with a fixed-shape algorithm:
 
-1. Sobel gradients + 3x3 box-filtered structure tensor (convolutions — MXU
-   work), min-eigenvalue response (VPU), like cv2's ``blockSize=3`` default.
+1. Sobel gradients + 3x3 box-filtered structure tensor (separable
+   shift-and-add), min-eigenvalue response, like cv2's ``blockSize=3``
+   default.
 2. Quality threshold at ``quality_level * max(response)``.
 3. Spatial spread: partition the image into ``min_distance``-sized cells,
    keep each cell's argmax (one corner per cell ~= pairwise distance >=
@@ -27,9 +28,9 @@ import jax.numpy as jnp
 def _sep3(img: jax.Array, ky, kx) -> jax.Array:
     """Separable 3-tap convolution via shift-and-add.
 
-    Single-channel 2D convs map terribly onto the MXU (C=1), costing tens
-    of ms at 1080p+ through conv_general_dilated; shift-and-add runs on the
-    VPU in ~0.1 ms.
+    A single-channel (C=1) 2D conv is a poor fit for a matrix unit;
+    shift-and-add is plain elementwise work that XLA fuses into one
+    pass.
     """
     h, w = img.shape
     pad = jnp.pad(img, ((1, 1), (1, 1)))
@@ -102,12 +103,10 @@ def detect_corners(
     threshold = jnp.max(resp) * quality_level
 
     # One corner per min_distance cell. Cell maxima via reduce_window (a
-    # reshape/transpose formulation relayouts the whole response map and
-    # measured ~20x slower on TPU); the winner's position comes from a
-    # second reduce_window over (value, flat-index) packed comparisons.
-    # Windows are capped at 32px per stage: a single (60, 60) strided
-    # reduce_window at 4K allocates ~31 MB of scoped VMEM (hard 16 MB
-    # limit on v5e), so larger cells reduce hierarchically — stage one at
+    # reshape/transpose formulation relayouts the whole response map);
+    # the winner's position comes from a second reduce_window over
+    # (value, flat-index) packed comparisons. Windows are capped at 32px
+    # per stage, so larger cells reduce hierarchically — stage one at
     # <= 32 px, stage two over the already-tiny grid. Cells round up to
     # a*b, which only spreads corners slightly wider.
     cell = max(int(min_distance), 1)
@@ -120,10 +119,7 @@ def detect_corners(
     def cell_reduce(arr, op, init):
         # Separable 1-D passes (columns, then rows): max over a k x k
         # cell decomposes exactly, and each strided 1-D reduce_window
-        # lowers to a k-element reduction instead of k^2. Measured
-        # ~12% faster end-to-end detect at 1920x1440 (0.80 -> 0.70
-        # ms/frame slope on v5e) — the gradient/response passes, not
-        # the NMS, dominate detect.
+        # lowers to a k-element reduction instead of k^2.
         r = jax.lax.reduce_window(
             arr, init, op,
             window_dimensions=(1, sub),

@@ -2,7 +2,7 @@
 
 Replaces ``cv::calcOpticalFlowPyrLK`` (``opencv/FrameSourceWarp.cpp:252-259``,
 default parameters: 21x21 window, 3 pyramid levels, iterative refinement).
-TPU-native shape discipline: a fixed number of points (mask for validity), a
+Device shape discipline: a fixed number of points (mask for validity), a
 fixed iteration count per level (``lax.fori_loop``), and everything batched
 over the point axis with ``vmap`` so the patch work vectorizes.
 
@@ -47,9 +47,8 @@ def _pyr_down(img: jax.Array) -> jax.Array:
     """cv2.pyrDown-style 5-tap Gaussian blur + 2x decimation.
 
     Two banded-matrix matmuls: separable blur+decimate is a (H/2, H) and a
-    (W, W/2) structured matrix product, which rides the MXU (~2 GFLOP at
-    1440p — microseconds) where both single-channel convs and strided
-    shift-and-add slicing cost milliseconds per call through XLA.
+    (W, W/2) structured matrix product (~2 GFLOP at 1440p, float32
+    HIGHEST); ``chip_smoke.py`` times the analyse phase that runs it.
     """
     img = img.astype(jnp.float32)
     h, w = img.shape
@@ -125,7 +124,7 @@ def _lk_level(
     # Template with a 1-px halo so the Scharr gradients below use REAL
     # neighbors (a SAME-padded conv fabricates huge border gradients —
     # ~0.5*intensity at the patch ring — that dominate G and bias the
-    # Newton step; cv2 and the Pallas kernel both sample a real halo).
+    # Newton step; cv2 samples a real halo too).
     win_prev, px0, py0 = _extract_window(prev_img, point, wsize_t)
     tx = jnp.clip(point[0] - px0.astype(jnp.float32) - (half + 1),
                   0.0, wsize_t - thalo - 1.0)
@@ -137,12 +136,16 @@ def _lk_level(
     # Scharr gradients of the template (cv2 uses Scharr for LK
     # derivatives), VALID over the halo patch -> (WIN, WIN).
     gx_k = jnp.array([[-3.0, 0, 3], [-10, 0, 10], [-3, 0, 3]], jnp.float32) / 32.0
+    # HIGHEST: a TF32 convolution (the GPU default for float32) would
+    # round the gradients that the Newton step divides by.
     ix = jax.lax.conv_general_dilated(
         tpl_halo[None, None], gx_k[None, None], (1, 1), "VALID",
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
     )[0, 0]
     iy = jax.lax.conv_general_dilated(
         tpl_halo[None, None], gx_k.T[None, None], (1, 1), "VALID",
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
     )[0, 0]
 

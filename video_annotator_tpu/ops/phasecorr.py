@@ -3,7 +3,7 @@
 The deshake-family stabilizers (ffmpeg ``deshake`` block search,
 ``src/render.ts:730-771``; ``deshake_opencl``, ``src/render.ts:857-911``)
 estimate a global inter-frame translation. Block matching is
-branch-and-search shaped; the TPU-native equivalent is FFT phase
+branch-and-search shaped; the dense-array equivalent is FFT phase
 correlation — two 2D FFTs and an argmax, all dense array work — with
 subpixel refinement from the correlation peak's neighborhood.
 """

@@ -7,7 +7,7 @@ randomizes point depths so translation can't be detected, and runs
 confidence) followed by a fallback when inliers < 40
 (``opencv/FrameSourceWarp.cpp:432-438``).
 
-The TPU-native formulation estimates the rotation *directly on the unit
+This formulation estimates the rotation *directly on the unit
 sphere* (no depth-randomization hack needed — rays factor translation out by
 construction for distant scenes, which is the same approximation the
 reference makes):

@@ -2,7 +2,7 @@
 
 The reference's parallelism is process-level (N concurrent ffmpeg processes,
 ``src/render.ts:21-22``; xargs -P in ``concat.sh:197-219``) on one GPU. The
-TPU-native equivalents (SURVEY.md section 2.4):
+device-mesh equivalents (SURVEY.md section 2.4):
 
 - data parallel: batch of independent streams sharded over the ``data``
   mesh axis (``parallel/streams.py``);
@@ -10,7 +10,7 @@ TPU-native equivalents (SURVEY.md section 2.4):
   with a ``smooth_radius`` halo exchanged between neighbors — the analogue
   of context parallelism for this workload (``parallel/temporal.py``);
 - spatial (tensor) parallel: the warp's output pixel grid sharded over
-  ``space`` (``parallel/spatial.py``).
+  ``space`` (``parallel/pipeline.py``, ``parallel/streams.py``).
 """
 
 from video_annotator_tpu.parallel.mesh import make_mesh  # noqa: F401

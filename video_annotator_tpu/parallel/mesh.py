@@ -14,7 +14,8 @@ def _factor(n: int, k: int) -> Tuple[int, ...]:
     dims = [1] * k
     i = 0
     rem = n
-    # greedy: peel factors of 2 (TPU slices are powers of two), then rest
+    # greedy: peel factors of 2 (device counts are usually powers of
+    # two), then the rest
     f = 2
     while rem > 1:
         while rem % f == 0:
@@ -47,18 +48,17 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> bool:
-    """Join a multi-host jax cluster (DCN across hosts, ICI within).
+    """Join a multi-host jax cluster.
 
-    The reference is strictly single-node; this is the TPU-native scaling
-    story beyond one host (SURVEY.md section 5's distributed-comm
-    equivalent): call on every host before ``make_mesh`` and the mesh
-    spans all hosts' devices — shardings over it place DP/SP axes across
-    DCN automatically. Arguments default to the standard
-    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars
-    (also set implicitly on Cloud TPU pods). Returns True when a
-    multi-process runtime was initialized, False for the single-host
-    no-op (nothing configured). Untested against real multi-host
-    hardware in this environment — single real chip only.
+    The reference is strictly single-node; this is the scaling story
+    beyond one host (SURVEY.md section 5's distributed-comm equivalent):
+    call on every host before ``make_mesh`` and the mesh spans all hosts'
+    devices — shardings over it place DP/SP axes across hosts
+    automatically. Arguments default to the standard
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars.
+    Returns True when a multi-process runtime was initialized, False for
+    the single-host no-op (nothing configured). Tested with CPU
+    processes only (``tests/test_multihost.py``).
     """
     import os
 
@@ -66,7 +66,7 @@ def initialize_multihost(
     nproc = num_processes if num_processes is not None else os.environ.get(
         "JAX_NUM_PROCESSES"
     )
-    if addr is None and nproc is None and not os.environ.get("TPU_NAME"):
+    if addr is None and nproc is None:
         return False
     jax.distributed.initialize(
         coordinator_address=addr,

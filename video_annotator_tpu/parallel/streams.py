@@ -2,18 +2,14 @@
 
 The reference gets throughput by running N ffmpeg processes over separate
 clips (analyse queue 2 / encode queue 4, ``src/render.ts:21-22``; xargs -P
-workers in ``concat.sh:197-251``). On TPU the same scaling is one sharded
-program: frames batched over a ``data`` axis with per-stream rotations, and
-XLA runs every stream's warp in parallel — BASELINE config #5 (8x 4K60
-streams on a v5e-8) is this path.
+workers in ``concat.sh:197-251``). On a device mesh the same scaling is one
+sharded program: frames batched over a ``data`` axis with per-stream
+rotations, and XLA runs every stream's warp in parallel.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from video_annotator_tpu.camera import Camera
@@ -31,8 +27,8 @@ def warp_streams_sharded(
     out_size=None,
 ) -> jax.Array:
     """Warp a batch of per-stream frames, sharded over streams (and
-    optionally output rows). Collectives ride ICI; inputs only need to live
-    on the devices that read them."""
+    optionally output rows). Inputs only need to live on the devices that
+    read them."""
     if out_size is None:
         out_size = (out_camera.height, out_camera.width)
     if space_axis is not None and out_size[0] % mesh.shape[space_axis]:
@@ -68,72 +64,6 @@ def warp_streams_sharded(
     return jitted(frames, rotations)
 
 
-def warp_streams_pallas_sharded(
-    frames: jax.Array,  # (B, H, W) uint8/float, one or more frames per stream
-    rotations: jax.Array,  # (B, 3, 3)
-    plan,
-    out_camera: Camera,
-    in_camera: Camera,
-    mesh: Mesh,
-    data_axis: str = "data",
-    interpret: bool | None = None,
-) -> jax.Array:
-    """Stream-parallel warp running the FUSED PALLAS KERNEL per device.
-
-    The production multi-chip encode path: each device holds whole frames
-    of its streams (no spatial partitioning), so the single-chip kernel —
-    schedule walk, windows, packed gathers — runs unchanged inside a
-    ``shard_map`` shard; scaling over a v5e-8 is embarrassingly parallel
-    with zero collectives. ``interpret`` defaults to True on CPU (tests /
-    the virtual mesh) and False on TPU.
-    """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
-    from video_annotator_tpu.ops.warp_pallas import (
-        _camera_from_key_np,
-        _camera_key,
-        warp_frames_pallas,
-    )
-
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    b = frames.shape[0]
-    nd = mesh.shape[data_axis]
-    assert b % nd == 0, (b, nd)
-    # Snapshot the cameras to numpy-leaf statics: shard_map lifts
-    # closed-over jax ARRAYS into tracers, and the kernel builder needs
-    # trace-time constants (intrinsics are fixed for a clip anyway).
-    out_static = _camera_from_key_np(_camera_key(out_camera))
-    in_static = _camera_from_key_np(_camera_key(in_camera))
-
-    def local(fr, ro):
-        return warp_frames_pallas(
-            fr, ro, plan, out_static, in_static, interpret=interpret,
-        )
-
-    # pallas_call declares no varying-mesh-axis info on its outputs;
-    # replication checking has nothing to verify for pure DP anyway.
-    # (kwarg renamed check_rep -> check_vma across jax versions)
-    import inspect
-
-    flag = (
-        "check_vma"
-        if "check_vma" in inspect.signature(shard_map).parameters
-        else "check_rep"
-    )
-    fn = shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P(data_axis, None, None), P(data_axis, None, None)),
-        out_specs=P(data_axis, None, None),
-        **{flag: False},
-    )
-    return jax.jit(fn)(frames, rotations)
-
-
 def warp_yuv_streams_sharded(
     warp_batch,
     ys: jax.Array,  # (B, H, W) luma, one frame per stream
@@ -144,23 +74,20 @@ def warp_yuv_streams_sharded(
     data_axis: str = "data",
 ):
     """Stream-parallel (DP) warp for ANY per-batch YUV warp function —
-    the 2D stabilizer families' multi-chip encode path.
+    the multi-device encode path of every stabilizer family.
 
-    The rotation family has its own sharded entry
-    (:func:`warp_streams_pallas_sharded`); the similarity/vidstab and
-    deshake families (``models/similarity.py``, ``models/deshake.py`` —
-    the reference's ``--filter vidstab``/``deshake`` pipelines,
-    ``src/render.ts:913-989``) warp with a (B, ...) parameter vector
-    instead of a rotation matrix, so this generic wrapper runs their
-    batched warp unchanged inside a ``shard_map`` DP shard. Per-stream
-    math is independent — zero collectives, and the sharded output is
-    bit-identical to the unsharded call per stream
+    The rotation family passes ``FrameWarper.warp_frames`` with (B, 3, 3)
+    rotations; the similarity/vidstab and deshake families
+    (``models/similarity.py``, ``models/deshake.py`` — the reference's
+    ``--filter vidstab``/``deshake`` pipelines, ``src/render.ts:913-989``)
+    pass a vmapped per-frame warp with a (B, ...) parameter vector. The
+    batched warp runs unchanged inside a ``shard_map`` DP shard.
+    Per-stream math is independent — zero collectives, and the sharded
+    output equals the unsharded call per stream
     (``tests/test_parallel.py::test_warp_yuv_streams_sharded_*``).
 
     ``warp_batch(ys, us, vs, params) -> (wy, wu, wv)`` must accept the
-    local (B/n, ...) shard arrays — e.g. ``jax.vmap`` of
-    ``warp_frame_similarity`` / ``warp_frame_deshake``, or
-    ``SimilarityWarper.warp_yuv_batch`` for the fused Pallas kernel.
+    local (B/n, ...) shard arrays.
     """
     try:
         from jax import shard_map
@@ -187,67 +114,3 @@ def warp_yuv_streams_sharded(
         **{flag: False},
     )
     return jax.jit(fn)(ys, us, vs, params)
-
-
-def warp_frame_pallas_spatial(
-    frame: jax.Array,  # (H, W) one frame, replicated to every device
-    rotation: jax.Array,  # (3, 3)
-    plan,
-    out_camera: Camera,
-    in_camera: Camera,
-    mesh: Mesh,
-    space_axis: str = "space",
-    interpret: bool | None = None,
-) -> jax.Array:
-    """Spatial (TP) warp: each device computes a horizontal band of the
-    output with the FUSED PALLAS KERNEL (SURVEY.md section 2.4's "shard
-    the output-pixel grid of the warp kernel across devices").
-
-    Gather-based warps read arbitrary input rows, so the input frame is
-    replicated (cheap vs the output win: latency drops by the shard
-    count); each shard runs the same executable with a dynamic tile-row
-    offset. Zero collectives — the band outputs concatenate along rows.
-    """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
-    from video_annotator_tpu.ops.warp_pallas import (
-        TILE_H,
-        _camera_from_key,
-        _camera_key,
-        warp_frame_band_pallas,
-    )
-
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    nshards = mesh.shape[space_axis]
-    ny = plan.grid[0]
-    ny_band = -(-ny // nshards)  # ceil; overflow tiles clamp in-kernel
-    out_static = _camera_from_key(_camera_key(out_camera))
-    in_static = _camera_from_key(_camera_key(in_camera))
-
-    def local(fr, ro):
-        off = jax.lax.axis_index(space_axis).astype(jnp.int32) * ny_band
-        return warp_frame_band_pallas(
-            fr, ro, plan, out_static, in_static, nshards, off,
-            interpret=interpret,
-        )
-
-    import inspect
-
-    flag = (
-        "check_vma"
-        if "check_vma" in inspect.signature(shard_map).parameters
-        else "check_rep"
-    )
-    fn = shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P(), P()),
-        out_specs=P(space_axis, None),
-        **{flag: False},
-    )
-    full = jax.jit(fn)(frame, rotation)
-    return full[: plan.crop_h]

@@ -2,8 +2,8 @@
 
 The reference's "long context" is the frame-time axis with a sliding
 ``smooth_radius`` lookahead window (``opencv/FrameSourceWarp.cpp:452-464``).
-Sharding that axis across devices needs two collective patterns, both over
-ICI neighbors:
+Sharding that axis across devices needs two collective patterns, both
+between mesh neighbors:
 
 - :func:`distributed_accumulate_rotations` — the accumulated product
   ``R_t = dR_t . R_{t-1}`` (``opencv/FrameSourceWarp.cpp:441``) as a
@@ -51,7 +51,7 @@ def smooth_rotations_sharded(
     )
     def smooth_block(flat):  # (T/n, 9)
         idx = jax.lax.axis_index(axis)
-        # Neighbor halos via ring permute over ICI: my *last* `radius` rows
+        # Neighbor halos via ring permute: my *last* `radius` rows
         # go right; my *first* `radius` rows go left.
         right_halo = jax.lax.ppermute(
             flat[-radius:], axis, [(i, (i + 1) % n_shards) for i in range(n_shards)]

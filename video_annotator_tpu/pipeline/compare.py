@@ -13,7 +13,6 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Sequence
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -215,35 +214,9 @@ def render_compare(
             per_mode.append((fam, deshake_corrections(trajs[fam], o)))
     num_frames = min(t.num_frames for t in trajs.values()) if trajs else 0
 
-    # Size the Pallas plan's static windows for the actual rotation-cell
-    # corrections (attitude/lock can exceed the default budget; see
-    # pipeline/render.py:encode).
-    from video_annotator_tpu.pipeline.render import max_rotation_deg
-
-    need_deg = max(
-        (max_rotation_deg(c) for f, c in per_mode if f == "rotation"),
-        default=0.0,
-    )
     warper = FrameWarper(in_cam, out_cam,
-                         max(options.max_correction_deg, need_deg + 0.5),
                          prefilter=options.prefilter == "auto",
                          interp=options.interp)
-
-    # Similarity cells ride the fused Pallas kernel on TPU like the
-    # encode path does (models/similarity.py:SimilarityWarper) — the
-    # per-pixel gather fallback costs ~245 ms/frame at 4K per cell. All
-    # corrections are known before the loop, so plans probe them.
-    sim_warpers = {}
-    if jax.default_backend() not in ("cpu",):
-        from video_annotator_tpu.models.similarity import SimilarityWarper
-
-        for i, (fam, corr) in enumerate(per_mode):
-            if fam == "similarity":
-                sim_warpers[i] = (
-                    SimilarityWarper(meta.width, meta.height, corr,
-                                     interp=options.interp),
-                    SimilarityWarper.matrices(corr).astype(np.float32),
-                )
 
     rows, cols = comparison_grid_size(len(modes))
     cell_h = warper.out_h - warper.out_h % 2
@@ -329,15 +302,10 @@ def render_compare(
                 yj = jnp.asarray(y, jnp.float32)
                 uj = jnp.asarray(u, jnp.float32)
                 vj = jnp.asarray(v, jnp.float32)
-                for i, (fam, corr) in enumerate(per_mode):
+                for fam, corr in per_mode:
                     if fam == "rotation":
                         rot = jnp.asarray(corr[t], jnp.float32)
-                        wy, wu, wv = warper(yj, uj, vj, rot)
-                    elif fam == "similarity" and i in sim_warpers:
-                        sw, mats = sim_warpers[i]
-                        wy, wu, wv = sw.warp_yuv(
-                            yj, uj, vj, jnp.asarray(mats[t])
-                        )
+                        wy, wu, wv = warper.warp_yuv(yj, uj, vj, rot)
                     elif fam == "similarity":
                         from video_annotator_tpu.models.similarity import (
                             warp_frame_similarity,

@@ -4,7 +4,7 @@ The reference forwards ``--debug`` into its filters, which draw their
 internal state over the frames (``libdewobble``'s ``debug: 1``,
 ``src/render.ts:677``; ``deshake_opencl``'s point/transform overlay,
 ``src/render.ts:891`` — the latter even re-plumbs the graph through RGB
-just to enable it, ``:872-898``). The TPU-native equivalent draws on the
+just to enable it, ``:872-898``). The equivalent here draws on the
 host, on the encode thread, where frames are already numpy: a HUD with
 the per-frame correction magnitude plus measured/correction trajectory
 curves and a time cursor, so a user can SEE what the stabilizer did

@@ -14,11 +14,11 @@ latency bounded by the lookahead radius instead of the clip length.
 
 The lookahead ring holds ``radius + warp_batch`` decoded YUV frames in
 device memory (at 4K: ~17 MB/frame — the default radius 90 + batch 32 is
-~2 GB of a 16 GB chip), the TPU analogue of the reference's
-``-extra_hw_frames`` VAAPI pool sizing (``src/render.ts:220-223``).
+~2 GB), the device analogue of the reference's ``-extra_hw_frames``
+VAAPI pool sizing (``src/render.ts:220-223``).
 
-``--analysis-mode paired`` (the TPU default via "auto") runs the batched
-pair analyse INSIDE the ring: arriving frames buffer into groups of
+``--analysis-mode paired`` (the accelerator default via "auto") runs the
+batched pair analyse INSIDE the ring: arriving frames buffer into groups of
 ``--analysis-chunk`` and each group's adjacent pairs track in one
 batched dispatch (``render.py:_make_pair_tracker`` — per-pair RNG keys
 fold from the GLOBAL frame index, so the trajectory is bit-identical to
@@ -32,9 +32,7 @@ radius, the reference's shape (``FrameSourceWarp.cpp:452-464``).
 from __future__ import annotations
 
 import os
-import sys
 from collections import deque
-from fractions import Fraction
 from typing import Optional
 
 import jax
@@ -42,7 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from video_annotator_tpu import so3
-from video_annotator_tpu.io.video import VideoMeta, open_reader, open_writer
+from video_annotator_tpu.io.video import VideoMeta, open_writer
 from video_annotator_tpu.pipeline.profiler import Progress, StageProfiler
 from video_annotator_tpu.pipeline.render import (
     FrameWarper,
@@ -54,7 +52,6 @@ from video_annotator_tpu.pipeline.render import (
     _passthrough_kwargs,
     build_cameras,
     make_window_corrections,
-    max_rotation_deg,
     output_fps,
     resolve_analysis_mode,
 )
@@ -116,28 +113,7 @@ def render_streaming(
         if options.horizon_lock
         else None
     )
-    # Unlike the two-phase path, corrections are not known up front, so
-    # the Pallas plan's static window budget is sized for the knowable
-    # parts (attitude + the horizon lock's initial tilt) and enforced per
-    # batch below — an out-of-budget correction must error, not warp
-    # silently wrong pixels.
-    attitude_deg = max_rotation_deg(
-        np.asarray(
-            so3.from_euler(
-                np.radians(options.roll), np.radians(options.pitch),
-                np.radians(options.yaw),
-            )
-        )[None]
-    )
-    tilt_deg = 0.0
-    if options.horizon_lock:
-        u = up0 if up0 is not None else np.asarray([0.0, -1.0, 0.0])
-        tilt_deg = float(np.degrees(np.arccos(np.clip(-u[1], -1.0, 1.0))))
-    budget_deg = (
-        options.max_correction_deg + attitude_deg
-        + (tilt_deg + 2.0 if options.horizon_lock else 0.0)
-    )
-    warper = FrameWarper(in_cam, out_cam, budget_deg,
+    warper = FrameWarper(in_cam, out_cam,
                          prefilter=options.prefilter == "auto",
                          interp=options.interp)
 
@@ -270,16 +246,6 @@ def render_streaming(
             for i in range(n):
                 overlay.text[t0 + i] = (
                     f"frame {t0 + i}  correction {degs[i]:.2f} deg"
-                )
-        if warper._use_pallas:
-            # Enforce the plan's static window budget (see above); the
-            # (batch, 3, 3) sync is a few KB once per batch.
-            need = max_rotation_deg(np.asarray(corr))
-            if need > budget_deg + 0.25:
-                raise ValueError(
-                    f"correction of {need:.1f} deg exceeds the planned warp "
-                    f"window budget ({budget_deg:.1f} deg); re-run with "
-                    f"--max-correction {need + 1:.0f} or the two-phase path"
                 )
         ys, us, vs = zip(*(
             [frames[i] for i in range(n)] + [frames[n - 1]] * (batch - n)

@@ -53,7 +53,8 @@ def estimate_up_direction(
     # inverse of the measured trajectory, cf. analyse_gyro's rebase).
     times = jnp.concatenate([jnp.asarray([t0], jnp.float32), accl_ts])
     R = integrate_gyro(omega, omega_ts, times)
-    a0 = jnp.einsum("tij,tj->ti", R[1:], accl)
+    a0 = jnp.einsum("tij,tj->ti", R[1:], accl,
+                    precision=jax.lax.Precision.HIGHEST)
 
     mag = jnp.linalg.norm(accl, axis=1)
     w = jnp.exp(-(((mag - GRAVITY) / sigma) ** 2))
@@ -75,7 +76,8 @@ def level_horizon(virtual: jax.Array, up0: jax.Array) -> jax.Array:
     axis within ~0 of vertical, where "horizon" is undefined) keep their
     roll.
     """
-    u = jnp.einsum("tij,j->ti", virtual, jnp.asarray(up0, virtual.dtype))
+    u = jnp.einsum("tij,j->ti", virtual, jnp.asarray(up0, virtual.dtype),
+                   precision=jax.lax.Precision.HIGHEST)
     # Roll angle of world-up away from image-up, about +z.
     theta = jnp.arctan2(u[:, 0], -u[:, 1])
     r = jnp.hypot(u[:, 0], u[:, 1])

@@ -38,16 +38,23 @@ def kalman_filter_1d(
     Q = jnp.eye(2) * process_noise
     R = jnp.array([[measurement_noise]])
 
+    def mm(*ms):
+        # Full float32 products: a TF32 product (the GPU default) would
+        # perturb the covariance recursion.
+        return functools.reduce(
+            lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST),
+            ms)
+
     def step(carry, zt):
         x, P = carry
         # predict
-        xp = F @ x
-        Pp = F @ P @ F.T + Q
+        xp = mm(F, x)
+        Pp = mm(F, P, F.T) + Q
         # update
-        S = H @ Pp @ H.T + R
-        K = Pp @ H.T / S[0, 0]
-        xn = xp + K[:, 0] * (zt - (H @ xp)[0])
-        Pn = (jnp.eye(2) - K @ H) @ Pp
+        S = mm(H, Pp, H.T) + R
+        K = mm(Pp, H.T) / S[0, 0]
+        xn = xp + K[:, 0] * (zt - mm(H, xp)[0])
+        Pn = mm(jnp.eye(2) - mm(K, H), Pp)
         return (xn, Pn), (xn, Pn, xp, Pp)
 
     x0 = jnp.array([z[0], 0.0])
@@ -60,8 +67,8 @@ def kalman_filter_1d(
     def back(carry, inp):
         xs_next = carry
         x_f, P_f, xp_next, Pp_next = inp
-        C = P_f @ F.T @ jnp.linalg.inv(Pp_next)
-        x_s = x_f + C @ (xs_next - xp_next)
+        C = mm(P_f, F.T, jnp.linalg.inv(Pp_next))
+        x_s = x_f + mm(C, xs_next - xp_next)
         return x_s, x_s
 
     # iterate from T-2 down to 0; element t uses prediction at t+1

@@ -3,11 +3,10 @@
 CMOS action cameras read sensor rows out sequentially over a large
 fraction of the frame period, so fast rotation skews every frame
 ("jello"). The reference has no answer to this (its dewobble/vidstab
-stages warp whole frames with one transform); on TPU the fused warp
-kernel already computes its map per 8-row output tile, so giving each
-tile row its OWN rotation is nearly free (one extra SMEM rotation read
-per tile) — per-scanline correction quantized to 8 rows (~0.3% of the
-readout window at 4K).
+stages warp whole frames with one transform); the warp computes its map
+per output pixel anyway, so giving each 8-row output band its OWN
+rotation is nearly free (one gathered 3x3 per row) — per-scanline
+correction quantized to 8 rows (~0.3% of the readout window at 4K).
 
 Model: frame ``t``'s rows are captured over
 ``[frame_time_t, frame_time_t + readout / fps)`` where ``readout`` is

@@ -7,7 +7,7 @@ at the center (``opencv/FrameSourceWarp.cpp:212,444,471``); the correction
 applied per frame is ``(R_smooth * R_measured^-1)^-1``
 (``opencv/FrameSourceWarp.cpp:468-475``).
 
-TPU-native shape: instead of a streaming deque, the whole trajectory (or a
+Device shape: instead of a streaming deque, the whole trajectory (or a
 sharded block of it with halo — see ``parallel/temporal.py``) is smoothed at
 once: the 9 matrix entries are convolved with the SG kernel (one small
 matmul over the time axis) and the results are projected back onto SO(3)
@@ -57,6 +57,8 @@ def sg_conv(padded: jax.Array, w: jax.Array) -> jax.Array:
     THE smoothing primitive, shared by every trajectory path (offline
     savgol, the streaming window core, the temporal-sharded halo
     smoother, and the 2D families) so the numerics cannot drift apart.
+    HIGHEST precision: the entries are rotation-matrix components, and a
+    TF32 convolution (the GPU default for f32) would move the trajectory.
     """
     return jax.lax.conv_general_dilated(
         padded.T[:, None, :],
@@ -64,6 +66,7 @@ def sg_conv(padded: jax.Array, w: jax.Array) -> jax.Array:
         window_strides=(1,),
         padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
     )[:, 0, :].T
 

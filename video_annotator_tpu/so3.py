@@ -23,8 +23,8 @@ import jax.numpy as jnp
 
 _EPS = 1e-8
 
-# Small 3x3 products must run at full float32 precision: some backends (TPU
-# MXU, and this stack's CPU path) default matmuls to bfloat16 inputs, which is
+# Small 3x3 products must run at full float32 precision: a backend's default
+# matmul precision may round inputs (TF32 on NVIDIA GPUs), which is
 # catastrophic for accumulated rotation products.
 matmul = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
@@ -125,8 +125,7 @@ def orthonormalize(M: jax.Array) -> jax.Array:
     ``R_t = dR . R_{t-1}`` whose factors are rotations up to float32
     rounding — one step lands within squared error of the true polar
     projection at the cost of two small matmuls instead of a per-frame
-    3x3 SVD (which is scalar-iterative on TPU and dominated the analyse
-    scan's non-LK time). NOT a substitute for :func:`project` on general
+    3x3 SVD (scalar-iterative, and the analyse scan runs it per frame). NOT a substitute for :func:`project` on general
     matrices (elementwise-averaged rotation windows etc.).
     """
     eye = jnp.broadcast_to(jnp.eye(3, dtype=M.dtype), M.shape)
@@ -221,8 +220,10 @@ def rotation_from_correlation(B: jax.Array, iters: int = 120) -> jax.Array:
     pivot = jax.nn.one_hot(jnp.argmax(diag, axis=-1), 4, dtype=B.dtype)
     va = _power(ones)
     vb = _power(pivot)
-    ra = jnp.einsum("...i,...ij,...j->...", va, K, va)
-    rb = jnp.einsum("...i,...ij,...j->...", vb, K, vb)
+    ra = jnp.einsum("...i,...ij,...j->...", va, K, va,
+                    precision=jax.lax.Precision.HIGHEST)
+    rb = jnp.einsum("...i,...ij,...j->...", vb, K, vb,
+                    precision=jax.lax.Precision.HIGHEST)
     v = jnp.where((ra >= rb)[..., None], va, vb)
     return quat_to_matrix(v)
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -129,6 +130,14 @@ def stabilise(code: str, directory: str = ".", concurrency: int = 2):
             print(msg)
 
 
+def gpu_host() -> bool:
+    """Whether a render process started from here would open a GPU,
+    decided without starting JAX in this process (a JAX process reserves
+    most of the card's memory the moment it first uses it)."""
+    held_to_cpu = os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu"
+    return not held_to_cpu and shutil.which("nvidia-smi") is not None
+
+
 def split(
     code: str,
     directory: str = ".",
@@ -139,9 +148,17 @@ def split(
 
     Work units are claimed with lockfiles and marked with ``.complete``
     files, so crashed or concurrent runs are safe to re-invoke. Renders run
-    as separate CLI processes (the reference's process-level parallelism);
-    keep ``concurrency=1`` on a single-chip host.
+    as separate CLI processes (the reference's process-level parallelism).
+    Each render process reserves most of the card's memory at start-up,
+    so on a GPU host ``concurrency`` must stay 1.
     """
+    if concurrency > 1 and gpu_host():
+        raise ValueError(
+            f"split --concurrency {concurrency}: every render process "
+            "reserves most of the GPU's memory at start-up, so concurrent "
+            "renders on this host fail for want of memory; use "
+            "--concurrency 1"
+        )
     meta = MatchMeta.load(code, directory)
     joined = os.path.join(directory, f"match_{code}.mp4")
     if not os.path.exists(joined):
